@@ -1,0 +1,23 @@
+"""The port's device rule: CUDA unless the caller asks for the CPU."""
+
+import torch
+
+
+def resolve_device(device=None, *inputs):
+    """The device a forecast runs on.
+
+    ``device=None`` means the device of the first torch tensor among
+    ``inputs``, else ``"cuda"``.  Raises ``RuntimeError`` when the result
+    is a CUDA device and CUDA is unavailable: the port never falls back to
+    the CPU on its own.
+    """
+    if device is None:
+        tensors = [x for x in inputs if isinstance(x, torch.Tensor)]
+        device = tensors[0].device if tensors else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pysteps_tpu_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device

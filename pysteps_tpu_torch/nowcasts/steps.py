@@ -1,0 +1,761 @@
+"""
+STEPS stochastic ensemble nowcast on PyTorch (counterpart of
+``pysteps_tpu/nowcasts/steps.py``).
+
+The JAX package's design carries over with PyTorch idiom:
+
+- the ensemble is a leading member axis of every tensor of the scan (JAX
+  vmaps over members), so each kernel launch serves all members of a
+  member chunk;
+- the lead-time loop is a Python loop (JAX: ``lax.scan``);
+- randomness comes from one explicit ``torch.Generator`` (JAX: per-member
+  ``fold_in`` key chains); the draws differ from the JAX package's, their
+  law does not;
+- the device is explicit.  On CUDA tensors the scan takes the path the JAX
+  package takes on the TPU: static displacement bounds, the 4x coarse
+  displacement carry, the PWL matcher and the hand-written kernels K1-K4
+  (``ops/``).  On CPU tensors it takes the JAX package's CPU path: the
+  exact-gather warp and the sort matcher.  The internal functions take
+  ``max_disp`` and the matcher choice as explicit arguments, so either
+  path can be driven on either device.
+
+Not ported (they raise ``NotImplementedError``): parametric, ssft and
+nested noise, ``noise_stddev_adj``, ``mesh``, and the streaming callback
+path (``callback`` with ``return_output=False``).
+"""
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pysteps_tpu_torch import cascade
+from pysteps_tpu_torch._device import resolve_device
+from pysteps_tpu_torch.cascade.decomposition import (
+    decompose_core,
+    decompose_spectral_core,
+    recompose_core,
+    recompose_spectral_core,
+)
+from pysteps_tpu_torch.extrapolation.semilagrangian import (
+    coarsen_velocity,
+    integrate_displacement,
+    integrate_displacement_coarse,
+    model_warp,
+    model_warp_coarse,
+)
+from pysteps_tpu_torch.noise import fftgenerators
+from pysteps_tpu_torch.noise.motion import (
+    _laplace,
+    get_default_params_bps_par,
+    get_default_params_bps_perp,
+)
+from pysteps_tpu_torch.nowcasts import utils as nowcast_utils
+from pysteps_tpu_torch.ops import pallas_histmatch
+from pysteps_tpu_torch.postprocessing.probmatching import prepare_cdf_matcher
+from pysteps_tpu_torch.timeseries import autoregression, correlation
+from pysteps_tpu_torch.utils import tapering as tapering_utils
+from pysteps_tpu_torch.utils.check_norain import check_norain
+
+# static displacement bound (pixels) of the kernel path: grids of at least
+# 3 * _MAX_DISP pixels a side use it for every storm
+_MAX_DISP = 48
+_UNPORTED_NOISE = ("parametric", "ssft", "nested")
+
+
+@dataclasses.dataclass(frozen=True)
+class StepsNowcasterConfig:
+    """Configuration of a STEPS run (the JAX package's fields)."""
+
+    n_ens_members: int = 24
+    n_cascade_levels: int = 6
+    precip_threshold: Optional[float] = None
+    norain_threshold: float = 0.0
+    kmperpixel: Optional[float] = None
+    timestep: Optional[float] = None
+    extrapolation_method: str = "semilagrangian"
+    decomposition_method: str = "fft"
+    bandpass_filter_method: str = "gaussian"
+    noise_method: Optional[str] = "nonparametric"
+    noise_stddev_adj: Optional[str] = None
+    ar_order: int = 2
+    velocity_perturbation_method: Optional[str] = "bps"
+    conditional: bool = False
+    probmatching_method: Optional[str] = "cdf"
+    mask_method: Optional[str] = "incremental"
+    seed: Optional[int] = None
+    num_workers: int = 1
+    fft_method: str = "numpy"
+    domain: str = "spatial"
+    extrapolation_kwargs: dict = dataclasses.field(default_factory=dict)
+    filter_kwargs: dict = dataclasses.field(default_factory=dict)
+    noise_kwargs: dict = dataclasses.field(default_factory=dict)
+    velocity_perturbation_kwargs: dict = dataclasses.field(default_factory=dict)
+    mask_kwargs: dict = dataclasses.field(default_factory=dict)
+    measure_time: bool = False
+    callback: Optional[callable] = None
+    return_output: bool = True
+    member_chunk: Optional[int] = None
+    mesh: Optional[object] = None
+    output_dtype: str = "float32"
+
+
+@dataclasses.dataclass
+class StepsNowcasterParams:
+    """Quantities derived at initialization and fixed over the loop."""
+
+    phi: torch.Tensor            # (k, p+1) AR parameters per cascade level
+    gamma: torch.Tensor          # (k, p) temporal autocorrelations
+    means: torch.Tensor          # (k,) cascade means of the last input
+    stds: torch.Tensor           # (k,) cascade stds of the last input
+    war: torch.Tensor            # wet-area ratio of the last input
+    mu_0: torch.Tensor           # mean rain rate over wet pixels
+    velocity_unit: torch.Tensor  # (2, m, n) unit flow (BPS parallel axis)
+    velocity_perp: torch.Tensor  # (2, m, n) perpendicular axis
+    precip_min: torch.Tensor     # domain minimum
+    precip_last: torch.Tensor    # (m, n) last observed field
+    noise_filter: torch.Tensor   # (m, n//2+1) nonparametric |FFT| filter
+
+
+@dataclasses.dataclass
+class StepsNowcasterState:
+    """Initial state of the loop; ``generator`` drives its noise draws."""
+
+    window: torch.Tensor       # (k, p, m, n) recent normalized cascades
+    precip_mask: torch.Tensor  # (m, n) rain mask (float)
+    generator: torch.Generator
+    eps_par: torch.Tensor      # (E,) BPS parallel perturbation draws
+    eps_perp: torch.Tensor     # (E,) BPS perpendicular perturbation draws
+
+
+def params_from_numpy(params, state, device, seed):
+    """The port's (params, state) from the JAX package's
+    ``StepsNowcasterParams`` / ``StepsNowcasterState`` given as dicts of
+    numpy arrays.  JAX's ``member_keys`` has no counterpart and is dropped;
+    ``seed`` seeds the port's generator instead."""
+    device = torch.device(device)
+
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)  # writable copy
+
+    p = StepsNowcasterParams(
+        **{f.name: t(params[f.name]) for f in dataclasses.fields(StepsNowcasterParams)}
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    s = StepsNowcasterState(
+        window=t(state["window"]),
+        precip_mask=t(state["precip_mask"]),
+        generator=gen,
+        eps_par=t(state["eps_par"]),
+        eps_perp=t(state["eps_perp"]),
+    )
+    return p, s
+
+
+def _nanmin(x):
+    return torch.where(torch.isnan(x), float("inf"), x).amin()
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _lagrangian_alignment(precip, velocity, n_iter=1, interp_order=1, max_disp=None):
+    """Advect each of the p+1 input fields to the time of the last one:
+    field i takes p-i unit steps along one shared displacement chain."""
+    p1 = precip.shape[0]
+    disps = [torch.zeros_like(velocity)]
+    for _ in range(p1 - 1):
+        disps.append(
+            integrate_displacement(
+                velocity, disps[-1], 1.0, n_iter=n_iter, max_disp=max_disp
+            )
+        )
+    disp = torch.stack(disps[::-1])  # (p+1, 2, m, n)
+    return model_warp(
+        precip, disp, max_disp=max_disp, interp_order=interp_order,
+        cval=float(_nanmin(precip)),
+    )
+
+
+def _estimate_params(precip_aligned, weights_2d, mask_thr, ar_order, conditional):
+    """Decompose the aligned inputs and estimate the per-level
+    autocorrelations and AR parameters."""
+    mask = mask_thr if conditional else None
+    levels, means, stds = decompose_core(
+        precip_aligned, weights_2d, mask=mask, normalize=True
+    )  # (p+1, k, m, n), (p+1, k), (p+1, k)
+    cascades = levels.transpose(0, 1)  # (k, p+1, m, n)
+    gamma = torch.stack(
+        [
+            torch.stack(correlation.temporal_autocorrelation(xs, mask=mask_thr))
+            for xs in cascades
+        ]
+    )  # (k, ar_order)
+    if ar_order == 2:
+        g2 = autoregression.adjust_lag2_corrcoef2(gamma[:, 0], gamma[:, 1])
+        gamma = torch.stack([gamma[:, 0], g2], dim=1)
+    phi = autoregression.estimate_ar_params_yw(gamma)
+    return cascades, means, stds, gamma, phi
+
+
+def _ar_step_lags(lags, phi, eps=None):
+    """AR(p) step on a tuple of lag tensors (oldest first), each
+    (..., k, m, n); returns the shifted tuple ending in the new state."""
+    p = len(lags)
+    x_new = lags[p - 1] * phi[:, 0, None, None]
+    for i in range(p - 1):
+        x_new = x_new + lags[i] * phi[:, p - 1 - i, None, None]
+    if eps is not None:
+        x_new = x_new + phi[:, p, None, None] * eps
+    return lags[1:] + (x_new,)
+
+
+def _member_update(
+    generator, cascades_j, phi, noise_filt, noise_filt_shape, weights_2d,
+    noise_std_coeffs, means_last, stds_last, spectral, batch,
+):
+    """A member chunk's cascade update: noise -> AR -> recompose.
+    ``cascades_j``: tuple of p lags (batch, k, m, n) spatial or
+    (batch, k, m, n//2+1) spectral."""
+    shape = noise_filt_shape
+    if spectral:
+        eps_fft = fftgenerators._generate_fft_noise(
+            generator, noise_filt, shape, batch, domain="spectral",
+            standardize=False,
+        )
+        eps_levels, _, _ = decompose_spectral_core(
+            eps_fft, weights_2d, shape, normalize=True
+        )
+    else:
+        eps = fftgenerators._generate_fft_noise(
+            generator, noise_filt, shape, batch, domain="spatial",
+            standardize=False,
+        )
+        eps_levels, _, _ = decompose_core(eps, weights_2d, normalize=True)
+    eps_levels = eps_levels * noise_std_coeffs[:, None, None]
+    cascades_j = _ar_step_lags(cascades_j, phi, eps=eps_levels)
+    if spectral:
+        field = recompose_spectral_core(cascades_j[-1], means_last, stds_last, shape)
+    else:
+        field = recompose_core(cascades_j[-1], means_last, stds_last)
+    return cascades_j, field
+
+
+def _steps_init(
+    precip, velocity, weights_2d, generator, precip_thr, taper,
+    E, ar_order, conditional, mask_method, struct_radius, mask_rim,
+    vel_pert, n_iter, interp_order, noise_in_graph=False, max_disp=None,
+):
+    """STEPS initialization: alignment, decomposition, AR estimation,
+    masks, BPS draws (from ``generator``) and the noise filter."""
+    m, n = precip.shape[1:]
+    dev = precip.device
+    if conditional:
+        mask_thr = torch.all(precip >= precip_thr, dim=0)
+    else:
+        mask_thr = torch.ones((m, n), dtype=torch.bool, device=dev)
+
+    precip_aligned = _lagrangian_alignment(
+        precip, velocity, n_iter=n_iter, interp_order=interp_order,
+        max_disp=max_disp,
+    )
+    cascades_full, means, stds, gamma, phi = _estimate_params(
+        precip_aligned, weights_2d, mask_thr, ar_order, conditional
+    )
+    window = cascades_full[:, -ar_order:]  # (k, p, m, n)
+
+    precip_last = precip[-1]
+    wet = precip_last >= precip_thr
+    war = (wet & mask_thr).sum().float() / torch.clamp(mask_thr.sum(), min=1)
+    mu_0 = torch.where(wet, precip_last, 0.0).sum() / torch.clamp(wet.sum(), min=1)
+
+    if mask_method == "incremental":
+        mask_prec_init = nowcast_utils.compute_dilated_mask(
+            wet[None], struct_radius, mask_rim
+        )[0]
+    elif mask_method == "obs":
+        mask_prec_init = wet.to(torch.float32)
+    else:
+        mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=dev)
+
+    if vel_pert:
+        eps_par = _laplace(generator, (E,))
+        eps_perp = _laplace(generator, (E,))
+        Nv = torch.linalg.vector_norm(velocity, dim=0)
+        V_n = torch.where(
+            Nv[None] > 1e-12, velocity / torch.clamp(Nv[None], min=1e-12), 0.0
+        )
+        V_perp = torch.stack([-V_n[1], V_n[0]])
+    else:
+        eps_par = torch.zeros(E, device=dev)
+        eps_perp = torch.zeros(E, device=dev)
+        V_n = torch.zeros_like(velocity)
+        V_perp = torch.zeros_like(velocity)
+
+    if noise_in_graph:
+        noise_filt = fftgenerators.nonparam_filter_core(precip_aligned, taper)
+    else:
+        noise_filt = torch.zeros((m, n // 2 + 1), dtype=torch.float32, device=dev)
+
+    params = StepsNowcasterParams(
+        phi=phi, gamma=gamma, means=means[-1], stds=stds[-1], war=war,
+        mu_0=mu_0, velocity_unit=V_n, velocity_perp=V_perp,
+        precip_min=precip.min(), precip_last=precip_last, noise_filter=noise_filt,
+    )
+    state = StepsNowcasterState(
+        window=window, precip_mask=mask_prec_init, generator=generator,
+        eps_par=eps_par, eps_perp=eps_perp,
+    )
+    return precip_aligned, params, state
+
+
+def _steps_scan(
+    window, mask_prec_init, generator, velocity, phi,
+    noise_filt, noise_filt_shape, weights_2d, noise_std_coeffs,
+    means_last, stds_last, precip_last, precip_min, precip_thr, war, mu_0,
+    domain_mask, eps_par, eps_perp, V_n, V_perp, vsf, p_par, p_perp,
+    int_steps, noise, mask_method, probmatching, domain, vel_pert,
+    timestep_min, mask_rim, struct_radius, n_iter, interp_order, need_det, E,
+    out_dtype="float32", member_chunk=None, max_disp=None, pwl_match=False,
+):
+    """The forecast loop over ``int_steps`` lead times.  Returns the
+    member-major (E, int_steps, m, n) output.
+
+    ``max_disp`` (static displacement bound or None) and ``pwl_match``
+    (PWL matcher or sort matcher) choose the path; the device of the
+    tensors chooses between the kernels and their plain versions.
+    ``member_chunk`` runs the members in sequential chunks of that size.
+    """
+    del precip_min  # kept for the JAX package's signature
+    m, n = precip_last.shape
+    dev = precip_last.device
+    spectral = domain == "spectral"
+    shape = (m, n)
+    if spectral:
+        window = torch.fft.rfft2(window)
+    ar_order = window.shape[1]
+    lags0 = tuple(window[:, i] for i in range(ar_order))
+    cascades = tuple(lag.expand((E,) + lag.shape) for lag in lags0) if noise else None
+    pm_match, pm_state = (
+        prepare_cdf_matcher(precip_last, pwl_match) if probmatching == "cdf"
+        else (None, None)
+    )
+    mask_prec = mask_prec_init.expand(E, m, n)
+    det_window = lags0 if need_det else None
+    # the displacement is carried on a coarse grid (full-res pixel units)
+    coarse = 4 if (max_disp is not None and m % 4 == 0 and n % 4 == 0) else 1
+    vel_c = coarsen_velocity(velocity, coarse)
+    V_n_c = coarsen_velocity(V_n, coarse) if vel_pert else None
+    V_perp_c = coarsen_velocity(V_perp, coarse) if vel_pert else None
+    displacement = torch.zeros(
+        (E, 2, m // coarse, n // coarse), dtype=torch.float32, device=dev
+    )
+    out = torch.zeros((E, int_steps, m, n), dtype=getattr(torch, out_dtype), device=dev)
+    mc = member_chunk if member_chunk and member_chunk < E else E
+    chunks = [slice(c0, c0 + mc) for c0 in range(0, E, mc)]
+
+    def gather(parts, like):
+        if len(parts) == 1:
+            return parts[0]
+        full = torch.empty_like(like)
+        for s, part in zip(chunks, parts):
+            full[s] = part
+        return full
+
+    for t in range(int_steps):
+        t_total = np.float32((t + 1.0) * timestep_min)
+        if det_window is not None:
+            det_window = _ar_step_lags(det_window, phi)
+            if spectral:
+                det_field = recompose_spectral_core(
+                    det_window[-1], means_last, stds_last, shape
+                )
+            else:
+                det_field = recompose_core(det_window[-1], means_last, stds_last)
+            sprog_m = nowcast_utils.compute_percentile_mask(det_field, war)
+
+        new_lags, new_masks, new_disps = [], [], []
+        for s in chunks:
+            Ec = s.stop - s.start
+            if noise:
+                casc_j, field = _member_update(
+                    generator, tuple(c[s] for c in cascades), phi, noise_filt,
+                    noise_filt_shape, weights_2d, noise_std_coeffs,
+                    means_last, stds_last, spectral, Ec,
+                )
+                new_lags.append(casc_j[-1])
+            else:
+                field = det_field.expand(Ec, m, n)
+            mask_j = mask_prec[s]
+
+            fmin = field.amin(dim=(-2, -1), keepdim=True)
+            if mask_method == "incremental":
+                field = fmin + (field - fmin) * mask_j
+                field = torch.where(field > fmin, field, fmin)
+            elif mask_method == "obs":
+                field = torch.where(mask_j > 0, field, fmin)
+            elif mask_method == "sprog":
+                field = torch.where(sprog_m, field, fmin)
+
+            if vel_pert:
+                a1, b1, c1 = (np.float32(v) for v in p_par)
+                a2, b2, c2 = (np.float32(v) for v in p_perp)
+                g_par = float(a1 * t_total**b1 + c1)
+                g_perp = float(a2 * t_total**b2 + c2)
+                vel_j = vel_c + (
+                    eps_par[s, None, None, None] * g_par * V_n_c
+                    + eps_perp[s, None, None, None] * g_perp * V_perp_c
+                ) / vsf
+            else:
+                vel_j = vel_c
+            disp_j = integrate_displacement_coarse(
+                vel_j, displacement[s], 1.0, n_iter=n_iter, max_disp=max_disp,
+                coarse=coarse,
+            )
+            new_disps.append(disp_j)
+
+            if probmatching == "cdf":
+                field = pm_match(field, pm_state)
+            elif probmatching == "mean":
+                wet = field >= precip_thr
+                mu_fct = torch.where(wet, field, 0.0).sum(dim=(-2, -1), keepdim=True)
+                mu_fct = mu_fct / torch.clamp(wet.sum(dim=(-2, -1), keepdim=True), min=1)
+                field = torch.where(wet, field - mu_fct + mu_0, field)
+
+            if mask_method == "incremental":
+                new_masks.append(
+                    nowcast_utils.compute_dilated_mask_from_field(
+                        field, precip_thr, struct_radius, mask_rim
+                    )
+                )
+
+            out_field = model_warp_coarse(
+                field, disp_j, shape, coarse, max_disp=max_disp,
+                interp_order=interp_order, cval=float("nan"),
+            )
+            out[s, t] = torch.where(domain_mask, float("nan"), out_field).to(out.dtype)
+
+        if noise:
+            cascades = cascades[1:] + (gather(new_lags, cascades[-1]),)
+        if mask_method == "incremental":
+            mask_prec = gather(new_masks, mask_prec)
+        displacement = gather(new_disps, displacement)
+    return out
+
+
+def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
+    """Initialization + loop.  Returns (out (E, T, m, n), init_s, loop_s)."""
+    t_init0 = time.time()
+    m, n = precip.shape[1:]
+    p = cfg.ar_order
+    E = cfg.n_ens_members
+    k_levels = cfg.n_cascade_levels
+
+    if isinstance(timesteps, int):
+        int_steps = timesteps
+        subsel = None
+    else:
+        subsel = list(timesteps)
+        int_steps = int(np.ceil(max(subsel)))
+
+    filter_method = cascade.get_method(cfg.bandpass_filter_method)
+    bp_filter = filter_method((m, n), k_levels, **cfg.filter_kwargs)
+    weights_2d = torch.tensor(bp_filter["weights_2d"], dtype=torch.float32, device=device)
+
+    generator = torch.Generator(device=device)
+    generator.manual_seed(cfg.seed if cfg.seed is not None else 42)
+
+    extrap_kwargs = dict(cfg.extrapolation_kwargs)
+    n_iter = extrap_kwargs.get("n_iter", 1)
+    interp_order = extrap_kwargs.get("interp_order", 1)
+
+    vel_pert = cfg.velocity_perturbation_method is not None
+    if vel_pert:
+        vp_kwargs = dict(cfg.velocity_perturbation_kwargs)
+        p_par = tuple(float(v) for v in vp_kwargs.get("p_par", get_default_params_bps_par()))
+        p_perp = tuple(float(v) for v in vp_kwargs.get("p_perp", get_default_params_bps_perp()))
+        vsf = 60.0 / (cfg.timestep * (1.0 / cfg.kmperpixel))
+    else:
+        p_par = p_perp = None
+        vsf = 1.0
+
+    mask_rim = None
+    struct_radius = 1
+    if cfg.mask_method == "incremental":
+        mask_rim = int(cfg.mask_kwargs.get("mask_rim", 10))
+        mask_f = cfg.mask_kwargs.get("mask_f", 1.0)
+        # structuring element scaled by the per-step motion extent
+        if cfg.timestep is not None and cfg.kmperpixel is not None:
+            n_struct = mask_f * cfg.timestep / cfg.kmperpixel
+        else:
+            n_struct = 3.0
+        struct_radius = max(int((n_struct - 1) / 2.0), 1)
+
+    precip_thr_f = float(
+        np.float32(cfg.precip_threshold if cfg.precip_threshold is not None else 0.0)
+    )
+
+    # static displacement bounds select the shift-decomposition kernels
+    # (K1/K2); on the CPU the exact gather is the path, as in the JAX package
+    on_cpu = device.type == "cpu"
+    if not on_cpu and min(m, n) >= 3 * _MAX_DISP:
+        max_disp_align = max_disp_scan = _MAX_DISP
+    else:
+        vmax = float(velocity.abs().max()) if velocity.numel() else 0.0
+        if vel_pert:
+            # 4-sigma Laplace margin on the BPS perturbation at the last lead
+            t_last = int_steps * (cfg.timestep or 1.0)
+            g_par = abs(p_par[0] * t_last ** p_par[1] + p_par[2])
+            g_perp = abs(p_perp[0] * t_last ** p_perp[1] + p_perp[2])
+            pert_margin = 4.0 * max(g_par, g_perp) / max(vsf, 1e-6)
+        else:
+            pert_margin = 0.0
+        max_disp_align = max(int(np.ceil(p * (vmax + 1.0))) + 1, 2)
+        max_disp_scan = max(
+            int(np.ceil(int_steps * (vmax + pert_margin))) + 2, max_disp_align
+        )
+        max_disp_scan = min(max_disp_scan, _MAX_DISP)
+        if max_disp_scan > min(m, n) // 3:
+            max_disp_scan = None
+        if on_cpu:
+            max_disp_align = max_disp_scan = None
+
+    noise_in_graph = cfg.noise_method == "nonparametric"
+    win_fun = cfg.noise_kwargs.get("win_fun", "tukey") if noise_in_graph else None
+    taper = torch.as_tensor(
+        tapering_utils.compute_window_function(m, n, win_fun)
+        if win_fun is not None else np.ones((m, n)),
+        dtype=torch.float32, device=device,
+    )
+
+    precip_aligned, params, state = _steps_init(
+        precip, velocity, weights_2d, generator, precip_thr_f, taper,
+        E=E, ar_order=p, conditional=cfg.conditional,
+        mask_method=cfg.mask_method, struct_radius=struct_radius,
+        mask_rim=mask_rim if mask_rim is not None else 0,
+        vel_pert=vel_pert, n_iter=n_iter, interp_order=interp_order,
+        noise_in_graph=noise_in_graph, max_disp=max_disp_align,
+    )
+    del precip_aligned
+    noise_std_coeffs = torch.ones(k_levels, dtype=torch.float32, device=device)
+
+    member_chunk = (
+        cfg.member_chunk if cfg.member_chunk and E % cfg.member_chunk == 0 else None
+    )
+    _sync(device)
+    init_time = time.time() - t_init0
+    t_loop0 = time.time()
+    out = _steps_scan(
+        state.window, state.precip_mask, state.generator, velocity, params.phi,
+        params.noise_filter, (m, n), weights_2d, noise_std_coeffs,
+        params.means, params.stds, params.precip_last, params.precip_min,
+        precip_thr_f, params.war, params.mu_0, domain_mask,
+        state.eps_par, state.eps_perp, params.velocity_unit, params.velocity_perp,
+        vsf, p_par, p_perp, int_steps,
+        noise=cfg.noise_method is not None,
+        mask_method=cfg.mask_method,
+        probmatching=cfg.probmatching_method,
+        domain=cfg.domain,
+        vel_pert=vel_pert,
+        timestep_min=float(cfg.timestep) if cfg.timestep else 1.0,
+        mask_rim=mask_rim,
+        struct_radius=struct_radius,
+        n_iter=n_iter,
+        interp_order=interp_order,
+        need_det=cfg.noise_method is None or cfg.mask_method == "sprog",
+        E=E,
+        out_dtype=cfg.output_dtype,
+        member_chunk=member_chunk,
+        max_disp=max_disp_scan,
+        pwl_match=not on_cpu and pallas_histmatch.supported((m, n)),
+    )
+    _sync(device)
+    loop_time = time.time() - t_loop0
+
+    if subsel is not None:
+        # fractional lead times interpolate linearly between integer steps
+        frames = []
+        for t_sub in subsel:
+            t_int = int(np.ceil(t_sub))
+            if t_sub == int(t_sub):
+                frames.append(out[:, int(t_sub) - 1])
+            else:
+                lo = out[:, t_int - 2] if t_int >= 2 else out[:, 0]
+                hi = out[:, t_int - 1]
+                w = t_sub - (t_int - 1)
+                frames.append((1 - w) * lo + w * hi)
+        out = torch.stack(frames, dim=1)
+    return out, init_time, loop_time
+
+
+class StepsNowcaster:
+    """Host orchestration around the STEPS init and loop."""
+
+    def __init__(self, precip, velocity, timesteps, steps_config, device):
+        self.device = device
+        self.precip = (
+            precip.detach().cpu().numpy() if isinstance(precip, torch.Tensor)
+            else np.asarray(precip)
+        )
+        self.velocity = (
+            velocity.detach().cpu().numpy() if isinstance(velocity, torch.Tensor)
+            else np.asarray(velocity)
+        )
+        self.timesteps = timesteps
+        self.config = steps_config
+
+    def compute_forecast(self):
+        cfg = self.config
+        t0 = time.time()
+        self._check_inputs()
+        if check_norain(
+            self.precip, cfg.precip_threshold, cfg.norain_threshold,
+            cfg.noise_kwargs.get("win_fun", "tukey"), printmsg=True,
+        ):
+            return nowcast_utils.zero_precipitation_forecast(
+                cfg.n_ens_members, self.timesteps, self.precip, self.device,
+                cfg.callback, cfg.return_output, cfg.measure_time, t0,
+            )
+        precip_np = self.precip[-(cfg.ar_order + 1):].astype(np.float32)
+        domain_mask = ~np.isfinite(precip_np[-1])
+        precip_np = np.where(np.isfinite(precip_np), precip_np, np.nanmin(precip_np))
+        out, init_time, loop_time = _steps_forecast(
+            torch.as_tensor(precip_np, device=self.device),
+            torch.as_tensor(self.velocity, dtype=torch.float32, device=self.device),
+            self.timesteps, cfg, torch.as_tensor(domain_mask, device=self.device),
+            self.device,
+        )
+        if cfg.callback is not None:
+            for t in range(out.shape[1]):
+                cfg.callback(out[:, t])
+        if cfg.measure_time:
+            return out, init_time, loop_time
+        return out
+
+    def _check_inputs(self):
+        cfg = self.config
+        if self.precip.ndim != 3:
+            raise ValueError("precip must be a three-dimensional array")
+        if self.precip.shape[0] < cfg.ar_order + 1:
+            raise ValueError(
+                f"precip.shape[0] must be at least ar_order+1 "
+                f"({cfg.ar_order + 1}), got {self.precip.shape[0]}"
+            )
+        if self.velocity.ndim != 3:
+            raise ValueError("velocity must be a three-dimensional array")
+        if self.precip.shape[1:] != self.velocity.shape[1:]:
+            raise ValueError("dimension mismatch between precip and velocity")
+        if isinstance(self.timesteps, list) and sorted(self.timesteps) != list(self.timesteps):
+            raise ValueError("timesteps is not in ascending order")
+        if cfg.conditional and cfg.precip_threshold is None:
+            raise ValueError("conditional=True but precip_threshold is not set")
+        if cfg.mask_method is not None and cfg.precip_threshold is None:
+            raise ValueError(
+                f"mask_method={cfg.mask_method} but precip_threshold is not set"
+            )
+        if cfg.noise_method in _UNPORTED_NOISE:
+            raise NotImplementedError(f"noise_method={cfg.noise_method!r} is not ported yet")
+        if cfg.noise_method not in (None, "nonparametric"):
+            raise ValueError(f"unknown noise_method {cfg.noise_method}")
+        if cfg.noise_stddev_adj is not None:
+            raise NotImplementedError("noise_stddev_adj is not ported yet")
+        if cfg.mesh is not None:
+            raise NotImplementedError("mesh is not ported yet")
+        if cfg.callback is not None and not cfg.return_output:
+            raise NotImplementedError(
+                "the streaming callback path (return_output=False) is not ported yet"
+            )
+        if cfg.domain not in ("spatial", "spectral"):
+            raise ValueError(f"unknown domain {cfg.domain}")
+        if cfg.velocity_perturbation_method not in (None, "bps"):
+            raise ValueError(
+                f"unknown vel_pert_method {cfg.velocity_perturbation_method}"
+            )
+        if cfg.velocity_perturbation_method is not None:
+            if cfg.kmperpixel is None:
+                raise ValueError("vel_pert_method is set but kmperpixel=None")
+            if cfg.timestep is None:
+                raise ValueError("vel_pert_method is set but timestep=None")
+
+
+def forecast(
+    precip,
+    velocity,
+    timesteps,
+    n_ens_members=24,
+    n_cascade_levels=6,
+    precip_thr=None,
+    norain_thr=0.0,
+    kmperpixel=None,
+    timestep=None,
+    extrap_method="semilagrangian",
+    decomp_method="fft",
+    bandpass_filter_method="gaussian",
+    noise_method="nonparametric",
+    noise_stddev_adj=None,
+    ar_order=2,
+    vel_pert_method="bps",
+    conditional=False,
+    probmatching_method="cdf",
+    mask_method="incremental",
+    seed=None,
+    num_workers=1,
+    fft_method="numpy",
+    domain="spatial",
+    extrap_kwargs=None,
+    filter_kwargs=None,
+    noise_kwargs=None,
+    vel_pert_kwargs=None,
+    mask_kwargs=None,
+    measure_time=False,
+    callback=None,
+    return_output=True,
+    member_chunk=None,
+    mesh=None,
+    output_dtype="float32",
+    device=None,
+):
+    """STEPS nowcast with the JAX package's signature plus ``device``.
+    Returns an (n_ens_members, T, m, n) tensor on ``device``: CUDA unless
+    the caller asks for the CPU (or passes CPU tensors); raises
+    ``RuntimeError`` when CUDA is needed and absent."""
+    device = resolve_device(device, precip, velocity)
+    config = StepsNowcasterConfig(
+        n_ens_members=n_ens_members,
+        n_cascade_levels=n_cascade_levels,
+        precip_threshold=precip_thr,
+        norain_threshold=norain_thr,
+        kmperpixel=kmperpixel,
+        timestep=timestep,
+        extrapolation_method=extrap_method,
+        decomposition_method=decomp_method,
+        bandpass_filter_method=bandpass_filter_method,
+        noise_method=noise_method,
+        noise_stddev_adj=noise_stddev_adj,
+        ar_order=ar_order,
+        velocity_perturbation_method=vel_pert_method,
+        conditional=conditional,
+        probmatching_method=probmatching_method,
+        mask_method=mask_method,
+        seed=seed,
+        num_workers=num_workers,
+        fft_method=fft_method,
+        domain=domain,
+        extrapolation_kwargs=extrap_kwargs or {},
+        filter_kwargs=filter_kwargs or {},
+        noise_kwargs=noise_kwargs or {},
+        velocity_perturbation_kwargs=vel_pert_kwargs or {},
+        mask_kwargs=mask_kwargs or {},
+        measure_time=measure_time,
+        callback=callback,
+        return_output=return_output,
+        member_chunk=member_chunk,
+        mesh=mesh,
+        output_dtype=output_dtype,
+    )
+    return StepsNowcaster(precip, velocity, timesteps, config, device).compute_forecast()

@@ -1,0 +1,116 @@
+"""Where the time of the PyTorch port's STEPS main path goes, on one card.
+
+    python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE]
+
+Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
+configuration of ``chip_smoke.py`` (96 members x 512^2 x 12 leads), once
+to warm up, ``--runs`` times on the host clock (each ending in
+``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
+one JSON line: the card's name and power limit, each run's init and loop
+seconds, the device time by kernel group (the hand kernels K1-K4, FFTs,
+sorts, reductions, elementwise) and the device's idle share of the
+profiled run.  The per-kernel table goes to ``--out`` (default
+``build/profile_torch_steps.json``).
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from chip_smoke import BENCH_KWARGS, N_LEADS, N_MEMBERS, SIDE, bench_inputs  # noqa: E402
+from pysteps_tpu_torch import nowcasts  # noqa: E402
+
+# kernel-name substrings -> group, first match wins
+GROUPS = (
+    ("pst_resample", "K1 resample"), ("pst_warp", "K2 warp"),
+    ("pst_pwl", "K3 pwl"), ("pst_rim", "K4 rim"),
+    ("fft", "fft"), ("sort", "sort"), ("radix", "sort"),
+    ("reduce", "reduction"), ("elementwise", "elementwise"),
+    ("vectorized", "elementwise"), ("memcpy", "copy"), ("memset", "copy"),
+)
+
+
+def group_of(name):
+    low = name.lower()
+    for key, group in GROUPS:
+        if key in low:
+            return group
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch_steps.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_steps: no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    precip_db, velocity = bench_inputs(SIDE)
+    dev = torch.device("cuda")
+    p = torch.as_tensor(precip_db, device=dev)
+    v = torch.as_tensor(velocity, device=dev)
+    steps = nowcasts.get_method("steps")
+    kw = dict(BENCH_KWARGS, measure_time=True)
+
+    def run(seed):
+        t0 = time.time()
+        out, init_s, loop_s = steps(p, v, N_LEADS, **dict(kw, seed=seed))
+        torch.cuda.synchronize()
+        return time.time() - t0, init_s, loop_s, out
+
+    run(1)
+    runs = [run(2 + i)[:3] for i in range(args.runs)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, _, _, out = run(100)
+    if tuple(out.shape) != (N_MEMBERS, N_LEADS, SIDE, SIDE):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    groups = {}
+    for e in kernels:
+        g = group_of(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
+    table = sorted(
+        ({"kernel": e.key[:160], "group": group_of(e.key), "count": e.count,
+          "ms": e.self_device_time_total / 1e3} for e in kernels),
+        key=lambda r: -r["ms"],
+    )
+    mfs = [N_MEMBERS * N_LEADS / r[0] for r in runs]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"card": smi, "kernels": table}, f, indent=1)
+    print(json.dumps({
+        "card": smi, "torch": torch.__version__,
+        "shape": [N_MEMBERS, N_LEADS, SIDE, SIDE],
+        "runs_wall_init_loop_s": runs,
+        "member_frames_per_s": mfs,
+        "member_frames_per_s_median": statistics.median(mfs),
+        "member_frames_per_s_quartiles": statistics.quantiles(mfs, n=4) if len(mfs) > 1 else mfs,
+        "profiled_wall_s": wall,
+        "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall if kernels else "not measured",
+        "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels": table[:12],
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

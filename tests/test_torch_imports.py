@@ -1,0 +1,81 @@
+"""The PyTorch port stands alone: no module of it (nor ``chip_smoke.py``)
+imports JAX or the JAX package, a forecast runs without loading JAX, and
+the entry points default to CUDA and raise where it is absent."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module):
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "pysteps_tpu")
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imported_modules(tree) if _forbidden(m)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_forbidden_names_tell_the_prefix_apart():
+    assert _forbidden("pysteps_tpu.ops.warp") and _forbidden("jax.numpy")
+    assert not _forbidden("pysteps_tpu_torch.ops.warp")
+
+
+def test_forecast_runs_without_loading_jax():
+    code = """
+import sys
+import numpy as np
+from pysteps_tpu_torch import nowcasts
+rng = np.random.default_rng(0)
+precip = np.where(rng.random((3, 32, 32)) > 0.5, 20.0 * rng.random((3, 32, 32)), -15.0)
+velocity = np.ones((2, 32, 32), np.float32)
+out = nowcasts.get_method("steps")(
+    precip.astype(np.float32), velocity, 2, n_ens_members=2, n_cascade_levels=4,
+    precip_thr=-10.0, kmperpixel=1.0, timestep=5, domain="spectral", seed=1,
+    device="cpu",
+)
+assert tuple(out.shape) == (2, 2, 32, 32), out.shape
+assert "jax" not in sys.modules and "pysteps_tpu" not in sys.modules
+print("ok")
+"""
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_default_device_is_cuda(monkeypatch):
+    from pysteps_tpu_torch import nowcasts
+    from pysteps_tpu_torch._device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    precip = np.zeros((3, 16, 16), np.float32)
+    velocity = np.zeros((2, 16, 16), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nowcasts.get_method("steps")(precip, velocity, 2, precip_thr=-10.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None, precip)
+    assert resolve_device(None, torch.zeros(1)).type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
