@@ -9,19 +9,29 @@ Phases, each printing JSON lines:
    versions;
 2. build: the hand-written kernels of ``pysteps_tpu_torch/csrc`` compiled
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
-3. kernels: each kernel of the STEPS path (K1 resample on both axes, K2
-   warp, K3 PWL apply, K4 rim from a field and from a mask) at the shapes
-   the main path gives it, held against its plain PyTorch version on the
-   same CUDA inputs, with its time, the plain version's, a library
-   yardstick where one PyTorch call comes close, and its bound;
-4. parity: the deterministic STEPS loop at 256^2 through the kernels on
-   the card against the plain versions on the CPU, same statics;
-5. main path: ``nowcasts.get_method("steps")`` at 96 members x 512^2 x 12
-   leads with the headline configuration, kernel launch counts read
-   around the timed run;
+3. kernels: each hand-written kernel (K1 resample on both axes, K2 warp,
+   K3 PWL apply, K4 rim from a field and from a mask, the two stages of
+   the fused match-rim-warp chain, the hierarchical and the flat PWL maps)
+   at the shapes its path gives it, held against its plain PyTorch version
+   on the same CUDA inputs, with its time, the plain version's, a library
+   yardstick where one PyTorch call comes close, and its bound.  The chain
+   runs on the inputs of path A's last lead, recorded from one forecast
+   with each lead's share of vertical taps outside stage 1's halo, and is
+   timed beside K3 -> K4 -> K2 on those inputs and with a halo of D + 1;
+4. parity: the deterministic STEPS loop at 256^2 through the chain on the
+   card against the plain chain on the CPU, same statics;
+5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
+   x 512^2 x 12 leads with the headline configuration, which takes the
+   chain; its exact kernel launch counts, read around the timed run;
+6. path B: the same at 1024^2 (above the chain's gate: K3, K4, K2);
+7. path C: the same at 320^2 (rows of 128 that do not tile into 32: the
+   hierarchical PWL map, K4, K2);
+8. path D: the public ``match_cdf_pwl_flat`` on 96 members x 512^2;
 
-then the ``kernels`` summary line and, last, the ``ok`` line.  Any failed
-check raises, and the script exits non-zero without the ``ok`` line.
+each path with the launch counts set to 0 just before it and read just
+after.  Then the ``kernels`` summary line (each row's ``launches`` from the
+path that runs it) and, last, the ``ok`` line.  Any failed check raises,
+and the script exits non-zero without the ``ok`` line.
 """
 
 import json
@@ -40,13 +50,20 @@ import torch.nn.functional as F  # noqa: E402
 from pysteps_tpu_torch import nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
-from pysteps_tpu_torch.ops import pallas_dilate, pallas_histmatch, pallas_warp  # noqa: E402
+from pysteps_tpu_torch.ops import (  # noqa: E402
+    pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp,
+)
 from pysteps_tpu_torch.postprocessing.probmatching import _prepare_cdf_target  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from helpers import make_synthetic_sequence  # noqa: E402
 
 N_MEMBERS, SIDE, N_LEADS = 96, 512, 12
+AR_ORDER = 2
+# the other STEPS paths, each cut in members and leads to keep the run short:
+# (members, side, leads)
+PATH_B = (32, 1024, 6)
+PATH_C = (96, 320, 6)
 # memory rate (bytes/s) and non-tensor-core f32 rate (FLOP/s) by card,
 # from NVIDIA's data sheets; the SXM part's figures are the default
 CARD_PEAKS = {
@@ -129,24 +146,31 @@ def phase_build():
 
 
 def _record(name, source, replaces, counter, out, ref, tol, kernel_ms, plain_ms,
-            library_ms, library_call, bytes_moved, flops, peaks):
-    """One kernel's check and numbers; raises when it disagrees."""
+            library_ms, library_call, bytes_moved, flops, peaks, path, **extra):
+    """One kernel's check and numbers; raises when it disagrees.  ``out``,
+    ``ref`` and ``tol`` may be tuples, one entry per output."""
     torch.cuda.synchronize()
-    both_nan = torch.isnan(out) & torch.isnan(ref)
-    if not torch.equal(torch.isnan(out), torch.isnan(ref)):
-        raise AssertionError(f"{name}: NaN sets differ from the plain version")
-    err = float(torch.where(both_nan, 0.0, (out - ref).abs()).max())
-    if not err <= tol:
-        raise AssertionError(f"{name}: max |kernel - plain| = {err} > {tol}")
+    if not isinstance(out, tuple):
+        out, ref, tol = (out,), (ref,), (tol,)
+    err = 0.0
+    for o, r_, t in zip(out, ref, tol):
+        both_nan = torch.isnan(o) & torch.isnan(r_)
+        if not torch.equal(torch.isnan(o), torch.isnan(r_)):
+            raise AssertionError(f"{name}: NaN sets differ from the plain version")
+        e = float(torch.where(both_nan, 0.0, (o - r_).abs()).max())
+        if not e <= t:
+            raise AssertionError(f"{name}: max |kernel - plain| = {e} > {t}")
+        err = max(err, e)
     bw, fl = peaks
     t_bytes, t_ops = bytes_moved / bw * 1e3, flops / fl * 1e3
     rec = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "counter": counter, "launches": None, "max_abs_err": err, "tol": tol,
+        "counter": counter, "path": path, "launches": None, "max_abs_err": err,
+        "tol": list(tol) if len(tol) > 1 else tol[0],
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "library_call": library_call,
-        "bytes": bytes_moved, "flops": flops,
+        "bytes": bytes_moved, "flops": flops, **extra,
     }
     emit(dict(rec, phase="kernel"))
     return rec
@@ -166,22 +190,91 @@ def _grid_sample_ms(field, disp):
     return cuda_ms(lambda: F.grid_sample(f4, grid, mode="bilinear", align_corners=True))
 
 
+def _halo_miss_share(dy, D, halo):
+    """Share of stage 1's vertical taps (k0 and k1 of every pixel) that
+    fall outside the matched rows of its 64-row tile, as chain.cu computes
+    the taps: these are matched a second time from the field."""
+    m = dy.shape[-2]
+    i = torch.arange(m, device=dy.device, dtype=torch.float32)[:, None]
+    k = torch.minimum(torch.maximum(torch.floor(i + dy), i - D), i + D)
+    i0 = torch.div(i, 64, rounding_mode="floor") * 64
+    ra, rb = (i0 - halo).clamp(min=0), (i0 + 64 + halo).clamp(max=m)
+    miss = 0.0
+    for kk in (k.clamp(0, m - 1), (k + 1).clamp(0, m - 1)):
+        miss += float(((kk < ra) | (kk >= rb)).float().mean()) / 2
+    return miss
+
+
+def _capture_chain_leads():
+    """Path A once, outside any counted run, recording each lead's chain
+    call: the largest displacements, the share of vertical taps outside
+    the default halo, and the last lead's inputs (the largest
+    displacements of the forecast)."""
+    precip_db, velocity = bench_inputs(SIDE)
+    dev = torch.device("cuda")
+    leads, last = [], {}
+    real = pallas_chain.match_warp_rim
+
+    def recording(field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r,
+                  do_rim=True):
+        halo = pallas_chain.default_halo(kr, r)
+        leads.append({
+            "max_abs_dx": float(disp_t[:, 0].abs().max()),
+            "max_abs_dy": float(dy.abs().max()),
+            "halo_miss_share": _halo_miss_share(dy, pallas_warp._round8(D), halo),
+        })
+        last.update(field=field, e8=e8, T=T, q0=q0, zval=zval, ztrg=ztrg, thr=thr,
+                    dy=dy, disp_t=disp_t, cval=cval, D=D, kr=kr, r=r, do_rim=do_rim)
+        return real(field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r,
+                    do_rim)
+
+    pallas_chain.match_warp_rim = recording
+    try:
+        nowcasts.get_method("steps")(
+            torch.as_tensor(precip_db, device=dev), torch.as_tensor(velocity, device=dev),
+            N_LEADS, **BENCH_KWARGS)
+    finally:
+        pallas_chain.match_warp_rim = real
+    if len(leads) != N_LEADS:
+        raise AssertionError(f"path A called the chain {len(leads)} times, not {N_LEADS}")
+    return leads, last
+
+
 def phase_kernels(peaks):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the shapes its path gives
+    it: K1, K4 from a mask and the chain at path A's, K2, K3 and K4 from a
+    field at path B's (K2 and K4 also at path C's, as the row's ``at_C``),
+    the hierarchical map at path C's, the flat map at path D's."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     recs = []
     E, m = N_MEMBERS, SIDE
     mc = m // 4
+    nan = float("nan")
+    leads, captured = _capture_chain_leads()
+    # paths B and C run the same motion for PATH_B[2] leads
+    lead = leads[PATH_B[2] - 1]
+    disp_bc = max(lead["max_abs_dx"], lead["max_abs_dy"])
 
     def smooth_disp(batch, size, amp):
-        """Smooth random (batch, 2, size, size) displacements of about amp px."""
+        """Smooth random (batch, 2, size, size) displacements of at most
+        1.6 amp px."""
         yy = torch.linspace(0, 3, size, device=dev)[:, None]
         xx = torch.linspace(0, 2, size, device=dev)[None, :]
         a = torch.rand((batch, 2, 1, 1), generator=gen, device=dev) + 0.5
         return amp * torch.stack([
             a[:, 0] * torch.sin(xx + yy) + 0.1, -a[:, 1] * torch.cos(0.7 * xx - yy)
         ], dim=1)
+
+    def member_fields(members, side):
+        """Member fields in dB around the benchmark's last frame, with the
+        matcher's target state and each member's PWL coefficients."""
+        precip_db, _ = bench_inputs(side)
+        target = torch.as_tensor(precip_db[-1], device=dev)
+        tstate = pallas_histmatch.prepare_target(*_prepare_cdf_target(target))
+        noise = torch.randn((members, side, side), generator=gen, device=dev)
+        x = (target[None] + 2.0 * noise).reshape(members, -1)
+        return x, pallas_histmatch.build_pwl_coeffs(x, tstate)
 
     # K1: per-lead velocity sampling on the coarse grid, 96 members x 2
     # channels sharing one index plane per member, Dc = 12
@@ -206,81 +299,194 @@ def phase_kernels(peaks):
             cuda_ms(lambda: pallas_warp._axis_resample(fields, idx0, frac, 12, axis), 5),
             _grid_sample_ms(fields, disp.repeat_interleave(2, dim=0)),
             "F.grid_sample bilinear (close, not the same function)",
-            nb, 4 * fields.numel(), peaks,
+            nb, 4 * fields.numel(), peaks, "A", shape=list(fields.shape),
         ))
 
-    # K2: the per-lead output warp, 96 x 512^2, D = 48
-    field = torch.randn((E, m, m), generator=gen, device=dev) * 5.0 + 10.0
-    disp = smooth_disp(E, m, 20.0)
-    dy = disp[:, 1].contiguous()
-    disp_t = disp.transpose(-1, -2).contiguous()
-    nan = float("nan")
-    out = pallas_warp.warp_fused(field, dy, disp_t, 48, nan)
-    ref = pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan)
-    recs.append(_record(
-        "K2_warp", "pysteps_tpu_torch/csrc/warp.cu",
-        "pysteps_tpu/ops/pallas_warp.py:216", "warp", out, ref,
-        1e-5 * float(field.max() - field.min()),
-        cuda_ms(lambda: pallas_warp.warp_fused(field, dy, disp_t, 48, nan)),
-        cuda_ms(lambda: pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan), 5),
-        _grid_sample_ms(field, disp),
-        "F.grid_sample bilinear (close, not the same function)",
-        4 * 5 * field.numel(), 12 * field.numel(), peaks,
-    ))
-
-    # K3: the PWL apply of 96 member fields against the benchmark target
-    precip_db, _ = bench_inputs(m)
-    target = torch.as_tensor(precip_db[-1], device=dev)
-    tstate = pallas_histmatch.prepare_target(*_prepare_cdf_target(target))
-    x = (target[None] + 2.0 * torch.randn((E, m, m), generator=gen, device=dev)).reshape(E, -1)
-    edges, d0, d1, q0, zval, ztrg = pallas_histmatch.build_pwl_coeffs(x, tstate)
-    e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
-    ztrg_b = ztrg.expand(E)
-    out = pallas_histmatch.pwl_apply_gather(x, e8, T, q0, zval, ztrg_b)
-    ref = pallas_histmatch._pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg_b)
-    recs.append(_record(
-        "K3_pwl_gather", "pysteps_tpu_torch/csrc/pwl.cu",
-        "pysteps_tpu/ops/pallas_histmatch.py:199", "pwl_gather", out, ref,
-        1e-5 * float(ref.abs().max()),
-        cuda_ms(lambda: pallas_histmatch.pwl_apply_gather(x, e8, T, q0, zval, ztrg_b)),
-        cuda_ms(lambda: pallas_histmatch._pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg_b), 3),
-        None, "none: no PyTorch call computes a per-member piecewise-linear map",
-        4 * (2 * x.numel() + e8.numel() + T.numel() + 3 * E),
-        # 7 coarse compares, 15 x (compare + 2 multiply-adds), the affine end
-        (7 + 15 * 5 + 4) * x.numel(), peaks,
-    ))
-
-    # K4: the incremental-mask rim, per lead from 96 fields (kr=2, r=10)
-    # and at init from one 0/1 mask
-    fields = x.reshape(E, m, m).contiguous()
+    # 7 coarse compares, 15 x (compare + 2 multiply-adds), the affine end
+    pwl_ops = 7 + 15 * 5 + 4
     R = 12
-    out = pallas_dilate.dilated_rim_from_field(fields, -10.0, 2, 10)
-    ref = pallas_dilate._rim_plain(fields, -10.0, 2, 10)
-    recs.append(_record(
-        "K4_rim_from_field", "pysteps_tpu_torch/csrc/rim.cu",
-        "pysteps_tpu/ops/pallas_dilate.py:86", "rim_from_field", out, ref, 1e-6,
-        cuda_ms(lambda: pallas_dilate.dilated_rim_from_field(fields, -10.0, 2, 10)),
-        cuda_ms(lambda: pallas_dilate._rim_plain(fields, -10.0, 2, 10), 3),
-        None, "none: no PyTorch call computes a bounded L1 distance transform",
-        4 * 2 * fields.numel(), 4 * (2 * R + 1) * fields.numel(), peaks,
-    ))
-    mask = (fields[:1] >= -10.0).to(torch.float32)
-    out = pallas_dilate.dilated_rim(mask, 2, 10)
-    ref = pallas_dilate._rim_plain(mask, 0.5, 2, 10)
+    rim_ops = 4 * (2 * R + 1)
+
+    def k2_k4(members, side, x, path):
+        """K2 (the per-lead output warp, D = 48, displacements up to those of
+        path A's lead PATH_B[2]) and K4 (the incremental-mask rim from the
+        member fields ``x``, kr=2, r=10)."""
+        field = x.reshape(members, side, side).contiguous()
+        disp = smooth_disp(members, side, disp_bc / 1.6)
+        dy = disp[:, 1].contiguous()
+        disp_t = disp.transpose(-1, -2).contiguous()
+        k2 = _record(
+            "K2_warp", "pysteps_tpu_torch/csrc/warp.cu",
+            "pysteps_tpu/ops/pallas_warp.py:216", "warp",
+            pallas_warp.warp_fused(field, dy, disp_t, 48, nan),
+            pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan),
+            1e-5 * float(field.max() - field.min()),
+            cuda_ms(lambda: pallas_warp.warp_fused(field, dy, disp_t, 48, nan)),
+            cuda_ms(lambda: pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan), 5),
+            _grid_sample_ms(field, disp),
+            "F.grid_sample bilinear (close, not the same function)",
+            4 * 5 * field.numel(), 12 * field.numel(), peaks, path,
+            shape=list(field.shape),
+        )
+        k4 = _record(
+            "K4_rim_from_field", "pysteps_tpu_torch/csrc/rim.cu",
+            "pysteps_tpu/ops/pallas_dilate.py:86", "rim_from_field",
+            pallas_dilate.dilated_rim_from_field(field, -10.0, 2, 10),
+            pallas_dilate._rim_plain(field, -10.0, 2, 10), 1e-6,
+            cuda_ms(lambda: pallas_dilate.dilated_rim_from_field(field, -10.0, 2, 10)),
+            cuda_ms(lambda: pallas_dilate._rim_plain(field, -10.0, 2, 10), 3),
+            None, "none: no PyTorch call computes a bounded L1 distance transform",
+            4 * 2 * field.numel(), rim_ops * field.numel(), peaks, path,
+            shape=list(field.shape),
+        )
+        return k2, k4
+
+    # path B: 32 x 1024^2; K3 the PWL apply of the member fields against
+    # the benchmark target
+    E_b, side_b = PATH_B[0], PATH_B[1]
+    xb, (edges_b, d0_b, d1_b, q0_b, zval_b, ztrg_b) = member_fields(E_b, side_b)
+    e8_b, T_b = pallas_histmatch.pack_gather_lut(edges_b, d0_b, d1_b)
+    k3_args = (xb, e8_b, T_b, q0_b, zval_b, ztrg_b.expand(E_b))
+    ref = pallas_histmatch._pwl_apply_gather_plain(*k3_args)
+    k2_b, k4_b = k2_k4(E_b, side_b, xb, "B")
+    k3 = _record(
+        "K3_pwl_gather", "pysteps_tpu_torch/csrc/pwl.cu",
+        "pysteps_tpu/ops/pallas_histmatch.py:199", "pwl_gather",
+        pallas_histmatch.pwl_apply_gather(*k3_args), ref,
+        1e-5 * float(ref.abs().max()),
+        cuda_ms(lambda: pallas_histmatch.pwl_apply_gather(*k3_args)),
+        cuda_ms(lambda: pallas_histmatch._pwl_apply_gather_plain(*k3_args), 3),
+        None, "none: no PyTorch call computes a per-member piecewise-linear map",
+        4 * (2 * xb.numel() + e8_b.numel() + T_b.numel() + 3 * E_b),
+        pwl_ops * xb.numel(), peaks, "B", shape=list(xb.shape),
+    )
+    del xb, k3_args, ref
+
+    # path C: 96 x 320^2; the hierarchical map, and K2 and K4 again
+    E_c, side_c = PATH_C[0], PATH_C[1]
+    xc, (edges_c, d0_c, d1_c, q0_c, zval_c, ztrg_c) = member_fields(E_c, side_c)
+    e16, M3 = pallas_chain.pack_hier_lut(edges_c, d0_c, d1_c)
+    hier_args = (xc, e16, M3, q0_c, zval_c, ztrg_c.expand(E_c))
+    ref = pallas_histmatch._pwl_apply_hier_plain(*hier_args)
+    hier = _record(
+        "pwl_hier", "pysteps_tpu_torch/csrc/pwl_variants.cu",
+        "pysteps_tpu/ops/pallas_histmatch.py:284", "pwl_hier",
+        pallas_histmatch.pwl_apply_hier(*hier_args), ref,
+        1e-5 * float(ref.abs().max()),
+        cuda_ms(lambda: pallas_histmatch.pwl_apply_hier(*hier_args)),
+        cuda_ms(lambda: pallas_histmatch._pwl_apply_hier_plain(*hier_args), 3),
+        None, "none: no PyTorch call computes a per-member piecewise-linear map",
+        4 * (2 * xc.numel() + e16.numel() + M3.numel() + 3 * E_c),
+        # 16 coarse compares, 7 x (compare + 2 multiply-adds), the affine end
+        (16 + 7 * 5 + 5) * xc.numel(), peaks, "C", shape=list(xc.shape),
+    )
+    k2_c, k4_c = k2_k4(E_c, side_c, xc, "C")
+    del xc, hier_args, ref
+    at_c = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k2_b["at_C"] = {k: k2_c[k] for k in at_c}
+    k4_b["at_C"] = {k: k4_c[k] for k in at_c}
+    recs += [k2_b, k3, k4_b, hier]
+
+    # K4 at init on path A: the rim of one 0/1 mask
+    x, (edges, d0, d1, q0, zval, ztrg) = member_fields(E, m)
+    mask = (x[:1].reshape(1, m, m) >= -10.0).to(torch.float32)
     recs.append(_record(
         "K4_rim_from_mask", "pysteps_tpu_torch/csrc/rim.cu",
-        "pysteps_tpu/ops/pallas_dilate.py:115", "rim_from_mask", out, ref, 1e-6,
+        "pysteps_tpu/ops/pallas_dilate.py:115", "rim_from_mask",
+        pallas_dilate.dilated_rim(mask, 2, 10), pallas_dilate._rim_plain(mask, 0.5, 2, 10),
+        1e-6,
         cuda_ms(lambda: pallas_dilate.dilated_rim(mask, 2, 10)),
         cuda_ms(lambda: pallas_dilate._rim_plain(mask, 0.5, 2, 10), 3),
         None, "none: no PyTorch call computes a bounded L1 distance transform",
-        4 * 2 * mask.numel(), 4 * (2 * R + 1) * mask.numel(), peaks,
+        4 * 2 * mask.numel(), rim_ops * mask.numel(), peaks, "A", shape=list(mask.shape),
+    ))
+
+    # the flat map on path D's shapes: 96 x 512^2
+    w = pallas_histmatch.flat_weights(d0, d1)
+    edges_f = edges.contiguous()
+    ref = pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0)
+    recs.append(_record(
+        "pwl_flat", "pysteps_tpu_torch/csrc/pwl_variants.cu",
+        "pysteps_tpu/ops/pallas_histmatch.py:258", "pwl_flat",
+        pallas_histmatch.pwl_apply(x, edges_f, w, q0), ref,
+        1e-5 * float(ref.abs().max()),
+        cuda_ms(lambda: pallas_histmatch.pwl_apply(x, edges_f, w, q0)),
+        cuda_ms(lambda: pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0), 2),
+        None, "none: no PyTorch call computes a per-member piecewise-linear map",
+        4 * (2 * x.numel() + edges_f.numel() + w.numel() + E),
+        # 128 x (compare + 2 adds), the affine end
+        (128 * 3 + 3) * x.numel(), peaks, "D", shape=list(x.shape),
+    ))
+    del x, ref
+
+    # the chain on path A's own inputs: its last lead, recorded from a
+    # forecast at the headline configuration
+    a = captured
+    field, e8, T, dy, disp_t = a["field"], a["e8"], a["T"], a["dy"], a["disp_t"]
+    q0, zval, ztrg, thr, cval = a["q0"], a["zval"], a["ztrg"], a["thr"], a["cval"]
+    D, kr, r, do_rim = pallas_warp._round8(a["D"]), a["kr"], a["r"], a["do_rim"]
+    B = field.shape[0]
+    ztrg_b = ztrg.expand(B)
+    v_args = (field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim)
+    # the halo the TPU design implies: every tap of a displacement <= D
+    halo_d1 = max(D + 1, kr + r)
+
+    def unfused():
+        """K3 -> K4 -> K2, the path the chain replaces, on the same inputs."""
+        matched = pallas_histmatch.pwl_apply_gather(
+            field.reshape(B, -1), e8, T, q0, zval, ztrg_b).reshape(field.shape)
+        pallas_dilate.dilated_rim_from_field(matched, thr, kr, r)
+        return pallas_warp.warp_fused(matched, dy, disp_t, D, cval)
+
+    C, rim = pallas_chain.chain_match_vert_rim(*v_args)
+    C_ref, rim_ref = pallas_chain._chain_v_plain(
+        field, e8, T, q0, zval, ztrg_b, thr, dy, D, kr, r, do_rim)
+    C_d1, rim_d1 = pallas_chain.chain_match_vert_rim(*v_args, halo=halo_d1)
+    if not (torch.equal(C_d1, C) and torch.equal(rim_d1, rim)):
+        raise AssertionError("chain stage 1: the halo changed the result")
+    timing = {
+        "chain_ms": cuda_ms(lambda: pallas_chain.match_warp_rim(
+            field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r, do_rim)),
+        "unfused_ms": cuda_ms(unfused),
+    }
+    span = float(C_ref.max() - C_ref.min())
+    plane = 4 * field.numel()
+    recs.append(_record(
+        "chain_match_vert_rim", "pysteps_tpu_torch/csrc/chain.cu",
+        "pysteps_tpu/ops/pallas_chain.py:277", "chain_match_vert_rim", (C, rim),
+        (C_ref, rim_ref), (1e-5 * span, 1e-6),
+        cuda_ms(lambda: pallas_chain.chain_match_vert_rim(*v_args)),
+        cuda_ms(lambda: pallas_chain._chain_v_plain(
+            field, e8, T, q0, zval, ztrg_b, thr, dy, D, kr, r, do_rim), 3),
+        None, "none: no PyTorch call computes a PWL map, a resample and a rim",
+        # field and dy read, C and the rim written; the LUTs
+        4 * plane + 4 * (e8.numel() + T.numel() + 3 * B),
+        # the match, one lerp, the rim's two min passes
+        (pwl_ops + 6 + rim_ops) * field.numel(), peaks, "A", shape=list(field.shape),
+        halo=pallas_chain.default_halo(kr, r), halo_D1=halo_d1,
+        ms_halo_D1=cuda_ms(lambda: pallas_chain.chain_match_vert_rim(*v_args, halo=halo_d1)),
+        leads=leads, **timing,
+    ))
+    out = pallas_chain.chain_horiz(C, disp_t, D, cval)
+    ref = pallas_warp._warp_h_plain(C, disp_t, D, cval)
+    recs.append(_record(
+        "chain_horiz", "pysteps_tpu_torch/csrc/chain.cu",
+        "pysteps_tpu/ops/pallas_chain.py:301", "chain_horiz", out, ref, 1e-5 * span,
+        cuda_ms(lambda: pallas_chain.chain_horiz(C, disp_t, D, cval)),
+        cuda_ms(lambda: pallas_warp._warp_h_plain(C, disp_t, D, cval), 5),
+        _grid_sample_ms(C, disp_t.transpose(-1, -2)),
+        "F.grid_sample bilinear (close, not the same function)",
+        # C and the two displacement planes read, the output written
+        4 * plane,
+        # one lerp and the in-domain test
+        12 * field.numel(), peaks, "A", shape=list(field.shape), **timing,
     ))
     return recs
 
 
 def _deterministic_run(precip, velocity, device, side, E, T):
-    """Deterministic STEPS init + loop with the kernel path's statics
-    (max_disp 48, coarse 4, PWL matcher) on ``device``."""
+    """Deterministic STEPS init + loop with the main path's statics
+    (max_disp 48, coarse 4, PWL matcher, the fused chain) on ``device``."""
     cfg = dict(BENCH_KWARGS, n_ens_members=E)
     dev = torch.device(device)
     w = torch.tensor(
@@ -306,20 +512,24 @@ def _deterministic_run(precip, velocity, device, side, E, T):
         probmatching="cdf", domain="spectral", vel_pert=False,
         timestep_min=float(cfg["timestep"]), mask_rim=10, struct_radius=2,
         n_iter=1, interp_order=1, need_det=True, E=E, max_disp=48,
-        pwl_match=True,
+        pwl_match=True, use_chain=True,
     )
     return out.cpu().numpy()
 
 
 def phase_parity():
-    """Card against CPU on the same statics; a non-integer motion keeps
+    """Card against CPU on the same statics, both through the chain (the
+    card's two kernels, the CPU's plain version); a non-integer motion keeps
     sampling positions off the domain edge, where the NaN set would hang
     on FFT rounding."""
     side, E, T = 256, 8, 6
     precip, velocity = bench_inputs(side, velocity=(1.7, 0.6))
+    _kernels.reset_launches()
     t0 = time.time()
     gpu = _deterministic_run(precip, velocity, "cuda", side, E, T)
     t1 = time.time()
+    if _kernels.LAUNCHES["chain_horiz"] != T:
+        raise AssertionError(f"parity: the card's loop did not take the chain: {_kernels.LAUNCHES}")
     cpu = _deterministic_run(precip, velocity, "cpu", side, E, T)
     t2 = time.time()
     nan_g, nan_c = np.isnan(gpu), np.isnan(cpu)
@@ -340,58 +550,113 @@ def phase_parity():
         raise AssertionError(f"parity: card and CPU disagree: {rec}")
 
 
-def phase_main(name, smi, recs):
-    precip_db, velocity = bench_inputs(SIDE)
+def _forecast_path(label, E, side, T, expected, name, smi):
+    """Drive ``nowcasts.get_method("steps")`` at ``E`` members x ``side``^2
+    x ``T`` leads with the benchmark's configuration: once to warm up, then
+    timed with the launch counts set to 0 just before and read just after.
+    Raises unless the counts are ``expected`` (every other kernel 0) and the
+    output is a plausible forecast."""
+    precip_db, velocity = bench_inputs(side)
     dev = torch.device("cuda")
     p = torch.as_tensor(precip_db, device=dev)
     v = torch.as_tensor(velocity, device=dev)
     f = nowcasts.get_method("steps")
-    out = f(p, v, N_LEADS, **BENCH_KWARGS)
+    kw = dict(BENCH_KWARGS, n_ens_members=E)
+    out = f(p, v, T, **kw)
     float(torch.nanmean(out))
     del out
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _kernels.reset_launches()
     t0 = time.time()
-    out, init_s, loop_s = f(p, v, N_LEADS, **dict(BENCH_KWARGS, seed=43, measure_time=True))
+    out, init_s, loop_s = f(p, v, T, **dict(kw, seed=43, measure_time=True))
     checksum = float(torch.nanmean(out))
     wall = time.time() - t0
     launches = dict(_kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
 
-    if tuple(out.shape) != (N_MEMBERS, N_LEADS, SIDE, SIDE):
-        raise AssertionError(f"main: output shape {tuple(out.shape)}")
+    if tuple(out.shape) != (E, T, side, side):
+        raise AssertionError(f"{label}: output shape {tuple(out.shape)}")
     if torch.isinf(out).any():
-        raise AssertionError("main: infinite values in the output")
+        raise AssertionError(f"{label}: infinite values in the output")
     finite = torch.isfinite(out).float().mean(dim=(0, 2, 3)).cpu().numpy()
     # only the inflow band (sources outside the domain) may be NaN
     if finite[0] < 0.95 or finite[-1] < 0.75:
-        raise AssertionError(f"main: finite fraction per lead {finite.tolist()}")
+        raise AssertionError(f"{label}: finite fraction per lead {finite.tolist()}")
     fin = out[torch.isfinite(out)]
     lo, hi = float(p[-1].min()), float(p[-1].max())
     if float(fin.min()) < lo - 1e-3 or float(fin.max()) > hi + 1e-3:
-        raise AssertionError("main: matched values outside the target's range")
-
-    # launches per forecast, from the code's structure: the init integrates
-    # ar_order unit steps of 2 velocity samples each and warps the inputs
-    # once (each sample or warp one K1 launch per axis); every lead takes 2
-    # samples, one warp, one match and one rim
-    ar_order = 2
-    k1 = ar_order * 2 + 1 + 2 * N_LEADS
-    expected = {"resample_axis0": k1, "resample_axis1": k1, "warp": N_LEADS,
-                "pwl_gather": N_LEADS, "rim_from_field": N_LEADS, "rim_from_mask": 1}
+        raise AssertionError(f"{label}: matched values outside the target's range")
+    expected = dict(dict.fromkeys(launches, 0), **expected)
     if launches != expected:
-        raise AssertionError(f"main: launches {launches} != expected {expected}")
-    for rec in recs:
-        rec["launches"] = launches[rec["counter"]]
-        if rec["launches"] < 1:
-            raise AssertionError(f"main: {rec['name']} was never launched")
-    emit({"phase": "main", "shape": list(out.shape), "member_frames_per_s":
-          N_MEMBERS * N_LEADS / wall, "wall_s": wall, "init_s": init_s,
+        raise AssertionError(f"{label}: launches {launches} != expected {expected}")
+    emit({"phase": f"path {label}", "shape": list(out.shape),
+          "member_frames_per_s": E * T / wall, "wall_s": wall, "init_s": init_s,
           "loop_s": loop_s, "max_memory_allocated": peak,
           "finite_fraction_first_last_lead": [float(finite[0]), float(finite[-1])],
           "checksum": checksum, "launches": launches,
           "device": name, "nvidia_smi": smi})
+    return launches
+
+
+def _k1_launches(T):
+    """K1 launches per axis in one forecast: the init integrates ar_order
+    unit steps of 2 velocity samples each and warps the inputs once (each
+    sample or warp one launch per axis); every lead takes 2 samples."""
+    return AR_ORDER * 2 + 1 + 2 * T
+
+
+def phase_paths(name, smi):
+    """Paths A-D, each with its exact launch counts; returns them by path."""
+    by_path = {}
+    k1 = _k1_launches(N_LEADS)
+    # A: every lead runs the chain's two stages; the init one rim of a mask
+    by_path["A"] = _forecast_path("A", N_MEMBERS, SIDE, N_LEADS, {
+        "resample_axis0": k1, "resample_axis1": k1, "chain_match_vert_rim": N_LEADS,
+        "chain_horiz": N_LEADS, "rim_from_mask": 1}, name, smi)
+    # B and C: every lead runs a match, a rim and a warp
+    for label, (E, side, T), matcher in (("B", PATH_B, "pwl_gather"),
+                                         ("C", PATH_C, "pwl_hier")):
+        k1 = _k1_launches(T)
+        by_path[label] = _forecast_path(label, E, side, T, {
+            "resample_axis0": k1, "resample_axis1": k1, "warp": T, matcher: T,
+            "rim_from_field": T, "rim_from_mask": 1}, name, smi)
+
+    # D: the public flat matcher on 96 members x 512^2, held against the
+    # gather matcher (the same map in another LUT layout)
+    dev = torch.device("cuda")
+    precip_db, _ = bench_inputs(SIDE)
+    target = torch.as_tensor(precip_db[-1], device=dev)
+    tstate = pallas_histmatch.prepare_target(*_prepare_cdf_target(target))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fields = target[None] + 2.0 * torch.randn((N_MEMBERS, SIDE, SIDE), generator=gen, device=dev)
+    fields = torch.maximum(fields, target.min())
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.time()
+    flat = pallas_histmatch.match_cdf_pwl_flat(fields, tstate)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by_path["D"] = dict(_kernels.LAUNCHES)
+    expected = dict(dict.fromkeys(by_path["D"], 0), pwl_flat=1)
+    if by_path["D"] != expected:
+        raise AssertionError(f"D: launches {by_path['D']} != expected {expected}")
+    gather = pallas_histmatch.match_cdf_pwl(fields, tstate)
+    err = float((flat - gather).abs().max())
+    if tuple(flat.shape) != tuple(fields.shape) or not bool(torch.isfinite(flat).all()):
+        raise AssertionError("D: the flat match is not a finite field of the input's shape")
+    # the two sum up to 128 terms in other orders: f32's bound for that is
+    # 2 x 128 x 2^-24 of the sum of the terms' magnitudes, which the deltas
+    # make large where the target's CDF is steep
+    _, d0, d1, q0, _, _ = pallas_histmatch.build_pwl_coeffs(fields.reshape(N_MEMBERS, -1), tstate)
+    mag = q0.abs() + d0.abs().sum(1) + fields.abs().amax((1, 2)) * d1.abs().sum(1)
+    tol = 2 * 128 * 2.0**-24 * float(mag.max())
+    if err > tol:
+        raise AssertionError(f"D: flat and gather maps differ by {err} > {tol}")
+    emit({"phase": "path D", "shape": list(flat.shape), "wall_s": wall,
+          "max_abs_diff_flat_vs_gather": err, "tol": tol,
+          "launches": by_path["D"], "device": name, "nvidia_smi": smi})
+    return by_path
 
 
 def main():
@@ -400,10 +665,17 @@ def main():
     phase_build()
     recs = phase_kernels(peaks)
     phase_parity()
-    phase_main(name, smi, recs)
+    by_path = phase_paths(name, smi)
+    for rec in recs:
+        rec["launches"] = by_path[rec["path"]][rec["counter"]]
+        rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}
+        if rec["launches"] < 1:
+            raise AssertionError(f"{rec['name']} was never launched on path {rec['path']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in keys} | {"library_call": r["library_call"]}
+    extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
+             "unfused_ms", "halo", "halo_D1", "ms_halo_D1")
+    emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

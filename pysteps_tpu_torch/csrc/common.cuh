@@ -1,13 +1,18 @@
-// Shared launch helpers for the hand-written Hopper kernels of
-// pysteps_tpu_torch.  Every entry point has a plain C interface (loaded with
-// ctypes), launches on the caller's stream, allocates nothing and returns
-// cudaGetLastError() so that the Python wrapper can raise on a refused launch.
+// Shared launch helpers and device arithmetic for the hand-written Hopper
+// kernels of pysteps_tpu_torch.  Every entry point has a plain C interface
+// (loaded with ctypes), launches on the caller's stream, allocates nothing
+// and returns cudaGetLastError() so that the Python wrapper can raise on a
+// refused launch.  The __device__ helpers below are the arithmetic that the
+// standalone kernels and the fused chain share, so both compute the same
+// values operation for operation.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define PST_THREADS 256
+// grid.y / grid.z limit: batch axes longer than this launch in chunks
+#define PST_MAX_GRID_YZ 65535LL
 
 // Grid for a grid-stride loop over `total` elements: enough blocks to fill
 // the card many times over, capped so huge batches still launch.
@@ -28,4 +33,69 @@ __device__ __forceinline__ int pst_clamp(int v, int lo, int hi) {
 // a * (1 - w) + c * w operation for operation.
 __device__ __forceinline__ float pst_lerp(float a, float c, float w) {
   return __fadd_rn(__fmul_rn(a, __fsub_rn(1.0f, w)), __fmul_rn(c, w));
+}
+
+// The two taps of a bounded backward lerp along one axis (K2 and the
+// chain): c = pos + disp, k = floor(c) clipped to [pos - D, pos + D], taps
+// k and k + 1 clipped to [0, size - 1], weight c - floor(c).  `c` is kept
+// unclipped for the in-domain test.
+struct PstTap {
+  int k0, k1;
+  float w, c;
+};
+
+__device__ __forceinline__ PstTap pst_tap(int pos, float disp, int D,
+                                          int size) {
+  PstTap t;
+  t.c = __fadd_rn((float)pos, disp);
+  const float f = floorf(t.c);
+  t.w = __fsub_rn(t.c, f);
+  const int k = pst_clamp((int)f, pos - D, pos + D);
+  t.k0 = pst_clamp(k, 0, size - 1);
+  t.k1 = pst_clamp(k + 1, 0, size - 1);
+  return t;
+}
+
+// K3's block-gathered PWL map of one value (K3 and the chain).  `se8`
+// holds the 8 block starts, `sT` the (8, 48) table of pack_gather_lut:
+//   idx  = #{g in 1..7 : v >= se8[g]}
+//   acc0 = T[idx, 45] + sum_j T[idx, 15 + j] * 1[v >= T[idx, j]]   j = 0..14
+//   acc1 = T[idx, 46] + sum_j T[idx, 30 + j] * 1[v >= T[idx, j]]
+//   out  = (q0 + acc0) + v * acc1, and ztrg where v == zval,
+// summed in the TPU kernel's order with no FMA contraction.
+__device__ __forceinline__ float pst_pwl_gather_eval(float v,
+                                                     const float* se8,
+                                                     const float* sT,
+                                                     float q0, float zval,
+                                                     float ztrg) {
+  int idx = 0;
+#pragma unroll
+  for (int g = 1; g < 8; ++g) idx += v >= se8[g] ? 1 : 0;
+  const float* row = sT + idx * 48;
+  float acc0 = row[45];
+  float acc1 = row[46];
+#pragma unroll
+  for (int j = 0; j < 15; ++j) {
+    const float sf = v >= row[j] ? 1.0f : 0.0f;
+    acc0 = __fadd_rn(acc0, __fmul_rn(row[15 + j], sf));
+    acc1 = __fadd_rn(acc1, __fmul_rn(row[30 + j], sf));
+  }
+  const float o = __fadd_rn(__fadd_rn(q0, acc0), __fmul_rn(v, acc1));
+  return v == zval ? ztrg : o;
+}
+
+// Block-wide copy of one member's gather LUT into shared memory; the
+// caller synchronises before use.
+__device__ __forceinline__ void pst_pwl_gather_load(const float* e8,
+                                                    const float* T,
+                                                    float* se8, float* sT) {
+  for (int k = threadIdx.x; k < 8 * 48; k += blockDim.x) sT[k] = T[k];
+  if (threadIdx.x < 8) se8[threadIdx.x] = e8[threadIdx.x];
+}
+
+// Rim value of a bounded L1 distance d (a small integer held in a float):
+// clip((R + 1 - d) / (r + 1), 0, 1), R = kr + r (K4 and the chain).
+__device__ __forceinline__ float pst_rim_of(float d, int R, int r) {
+  const float rim = __fdiv_rn(__fsub_rn((float)(R + 1), d), (float)(r + 1));
+  return fminf(fmaxf(rim, 0.0f), 1.0f);
 }

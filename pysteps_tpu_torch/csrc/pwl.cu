@@ -8,7 +8,9 @@
 //   acc1 = T[idx, 46] + sum_j T[idx, 30 + j] * 1[x >= T[idx, j]]
 //   out  = (q0 + acc0) + x * acc1, and out = ztrg where x == zval.
 // The 15 fine terms are summed in the TPU kernel's order, with
-// round-to-nearest intrinsics so that no FMA changes the rounding.
+// round-to-nearest intrinsics so that no FMA changes the rounding.  The
+// per-pixel map is common.cuh's pst_pwl_gather_eval, which the fused chain
+// (chain.cu) evaluates too.
 //
 // Design: grid (pixel blocks, members); each block copies its member's
 // (8, 48) table, 8 block edges and 3 scalars into shared memory once, then
@@ -28,45 +30,29 @@ __global__ void pst_pwl_gather_kernel(const float* __restrict__ x,
                                       float* __restrict__ out, long long N) {
   __shared__ float sT[8 * 48];
   __shared__ float se8[8];
-  __shared__ float ssc[3];
-  const int b = blockIdx.y;
-  for (int k = threadIdx.x; k < 8 * 48; k += blockDim.x)
-    sT[k] = T[(long long)b * 8 * 48 + k];
-  if (threadIdx.x < 8) se8[threadIdx.x] = e8[b * 8 + threadIdx.x];
-  if (threadIdx.x < 3) ssc[threadIdx.x] = scal[b * 3 + threadIdx.x];
+  const long long b = blockIdx.y;
+  pst_pwl_gather_load(e8 + b * 8, T + b * 8 * 48, se8, sT);
+  const float q0 = scal[b * 3], zval = scal[b * 3 + 1], ztrg = scal[b * 3 + 2];
   __syncthreads();
-  const float q0 = ssc[0], zval = ssc[1], ztrg = ssc[2];
-  const float* xb = x + (long long)b * N;
-  float* ob = out + (long long)b * N;
+  const float* xb = x + b * N;
+  float* ob = out + b * N;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x; p < N;
        p += stride) {
-    const float v = xb[p];
-    int idx = 0;
-#pragma unroll
-    for (int g = 1; g < 8; ++g) idx += v >= se8[g] ? 1 : 0;
-    const float* row = sT + idx * 48;
-    float acc0 = row[45];
-    float acc1 = row[46];
-#pragma unroll
-    for (int j = 0; j < 15; ++j) {
-      const float sf = v >= row[j] ? 1.0f : 0.0f;
-      acc0 = __fadd_rn(acc0, __fmul_rn(row[15 + j], sf));
-      acc1 = __fadd_rn(acc1, __fmul_rn(row[30 + j], sf));
-    }
-    const float o = __fadd_rn(__fadd_rn(q0, acc0), __fmul_rn(v, acc1));
-    ob[p] = v == zval ? ztrg : o;
+    ob[p] = pst_pwl_gather_eval(xb[p], se8, sT, q0, zval, ztrg);
   }
 }
 
 extern "C" int pst_pwl_gather(const void* x, const void* e8, const void* T,
                               const void* scal, void* out, long long batch,
                               long long N, void* stream) {
-  if (batch > 0 && N > 0) {
-    dim3 grid(pst_blocks(N, 4), (unsigned int)batch);
+  for (long long b0 = 0; b0 < batch && N > 0; b0 += PST_MAX_GRID_YZ) {
+    const long long nb = batch - b0 < PST_MAX_GRID_YZ ? batch - b0 : PST_MAX_GRID_YZ;
+    dim3 grid(pst_blocks(N, 4), (unsigned int)nb);
     pst_pwl_gather_kernel<<<grid, PST_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)e8, (const float*)T,
-        (const float*)scal, (float*)out, N);
+        (const float*)x + b0 * N, (const float*)e8 + b0 * 8,
+        (const float*)T + b0 * 8 * 48, (const float*)scal + b0 * 3,
+        (float*)out + b0 * N, N);
   }
   return (int)cudaGetLastError();
 }

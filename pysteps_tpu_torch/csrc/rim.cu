@@ -57,8 +57,7 @@ __global__ void pst_rim_h_kernel(const float* __restrict__ dv,
     for (int jj = lo; jj <= hi; ++jj) {
       best = fminf(best, __fadd_rn(row[jj], (float)abs(jj - j)));
     }
-    const float rim = __fdiv_rn(__fsub_rn((float)(R + 1), best), (float)(r + 1));
-    out[t] = fminf(fmaxf(rim, 0.0f), 1.0f);
+    out[t] = pst_rim_of(best, R, r);
   }
 }
 

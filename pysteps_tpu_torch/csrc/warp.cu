@@ -11,6 +11,8 @@
 //               (i + disp_t[b,1,j,i], cx) lies outside [0,m-1]x[0,n-1] get cval.
 // D arrives already rounded up to a multiple of 8, as the TPU wrapper rounds
 // it; the outside test reads the transposed dy plane, as _warp_h_kernel does.
+// The taps and the lerp are common.cuh's pst_tap and pst_lerp, shared with
+// the fused chain (chain.cu).
 //
 // Design: one thread per output pixel, coalesced along the last axis.
 // Bound on the H100: memory, at least field + dy + disp_t (2 planes) + out,
@@ -34,14 +36,9 @@ __global__ void pst_warp_v_kernel(const float* __restrict__ field,
     const long long p = t - b * plane;
     const int i = (int)(p / n);
     const int j = (int)(p - (long long)i * n);
-    const float cy = __fadd_rn((float)i, dy[t]);
-    const float y0 = floorf(cy);
-    const float w = __fsub_rn(cy, y0);
-    const int y0i = pst_clamp((int)y0, i - D, i + D);
-    const int k0 = pst_clamp(y0i, 0, m - 1);
-    const int k1 = pst_clamp(y0i + 1, 0, m - 1);
+    const PstTap y = pst_tap(i, dy[t], D, m);
     const float* f = field + b * plane;
-    C[t] = pst_lerp(f[(long long)k0 * n + j], f[(long long)k1 * n + j], w);
+    C[t] = pst_lerp(f[(long long)y.k0 * n + j], f[(long long)y.k1 * n + j], y.w);
   }
 }
 
@@ -60,18 +57,13 @@ __global__ void pst_warp_h_kernel(const float* __restrict__ C,
     const int j = (int)(p - (long long)i * n);
     const float* dxt = disp_t + 2 * b * plane;  // (n, m) planes
     const long long q = (long long)j * m + i;
-    const float cx = __fadd_rn((float)j, dxt[q]);
-    const float x0 = floorf(cx);
-    const float w = __fsub_rn(cx, x0);
-    const int x0i = pst_clamp((int)x0, j - D, j + D);
-    const int k0 = pst_clamp(x0i, 0, n - 1);
-    const int k1 = pst_clamp(x0i + 1, 0, n - 1);
+    const PstTap x = pst_tap(j, dxt[q], D, n);
     const float* c = C + b * plane + (long long)i * n;
-    float v = pst_lerp(c[k0], c[k1], w);
+    float v = pst_lerp(c[x.k0], c[x.k1], x.w);
     if (masked) {
       const float cy = __fadd_rn((float)i, dxt[plane + q]);
-      const bool inside = cy >= 0.0f && cy <= (float)(m - 1) && cx >= 0.0f &&
-                          cx <= (float)(n - 1);
+      const bool inside = cy >= 0.0f && cy <= (float)(m - 1) && x.c >= 0.0f &&
+                          x.c <= (float)(n - 1);
       if (!inside) v = cval;
     }
     out[t] = v;

@@ -13,11 +13,13 @@ The JAX package's design carries over with PyTorch idiom:
   law does not;
 - the device is explicit.  On CUDA tensors the scan takes the path the JAX
   package takes on the TPU: static displacement bounds, the 4x coarse
-  displacement carry, the PWL matcher and the hand-written kernels K1-K4
-  (``ops/``).  On CPU tensors it takes the JAX package's CPU path: the
-  exact-gather warp and the sort matcher.  The internal functions take
-  ``max_disp`` and the matcher choice as explicit arguments, so either
-  path can be driven on either device.
+  displacement carry, the PWL matcher and the hand-written kernels
+  (``ops/``), with the fused match-rim-warp chain where
+  :func:`_chain_available` allows it.  On CPU tensors it takes the JAX
+  package's CPU path: the exact-gather warp and the sort matcher.  The
+  internal functions take ``max_disp``, the matcher choice and
+  ``use_chain`` as explicit arguments, so any path can be driven on
+  either device.
 
 Not ported (they raise ``NotImplementedError``): parametric, ssft and
 nested noise, ``noise_stddev_adj``, ``mesh``, and the streaming callback
@@ -45,6 +47,7 @@ from pysteps_tpu_torch.extrapolation.semilagrangian import (
     integrate_displacement_coarse,
     model_warp,
     model_warp_coarse,
+    upsample_planes,
 )
 from pysteps_tpu_torch.noise import fftgenerators
 from pysteps_tpu_torch.noise.motion import (
@@ -53,7 +56,7 @@ from pysteps_tpu_torch.noise.motion import (
     get_default_params_bps_perp,
 )
 from pysteps_tpu_torch.nowcasts import utils as nowcast_utils
-from pysteps_tpu_torch.ops import pallas_histmatch
+from pysteps_tpu_torch.ops import pallas_chain, pallas_histmatch
 from pysteps_tpu_torch.postprocessing.probmatching import prepare_cdf_matcher
 from pysteps_tpu_torch.timeseries import autoregression, correlation
 from pysteps_tpu_torch.utils import tapering as tapering_utils
@@ -203,6 +206,19 @@ def _estimate_params(precip_aligned, weights_2d, mask_thr, ar_order, conditional
     return cascades, means, stds, gamma, phi
 
 
+def _chain_available(probmatching, interp_order, max_disp, shape, on_cuda):
+    """Whether the fused match+rim+warp chain serves this configuration:
+    the JAX package's gate (``pysteps_tpu/nowcasts/steps.py:247-263``),
+    with the card standing in for its Pallas switch."""
+    return bool(
+        probmatching == "cdf"
+        and interp_order == 1
+        and max_disp is not None
+        and pallas_chain.supported(shape)
+        and on_cuda
+    )
+
+
 def _ar_step_lags(lags, phi, eps=None):
     """AR(p) step on a tuple of lag tensors (oldest first), each
     (..., k, m, n); returns the shifted tuple ending in the new state."""
@@ -322,13 +338,15 @@ def _steps_scan(
     int_steps, noise, mask_method, probmatching, domain, vel_pert,
     timestep_min, mask_rim, struct_radius, n_iter, interp_order, need_det, E,
     out_dtype="float32", member_chunk=None, max_disp=None, pwl_match=False,
+    use_chain=False,
 ):
     """The forecast loop over ``int_steps`` lead times.  Returns the
     member-major (E, int_steps, m, n) output.
 
-    ``max_disp`` (static displacement bound or None) and ``pwl_match``
-    (PWL matcher or sort matcher) choose the path; the device of the
-    tensors chooses between the kernels and their plain versions.
+    ``max_disp`` (static displacement bound or None), ``pwl_match`` (PWL
+    matcher or sort matcher) and ``use_chain`` (the fused match+rim+warp
+    chain, taken with the PWL matcher only) choose the path; the device of
+    the tensors chooses between the kernels and their plain versions.
     ``member_chunk`` runs the members in sequential chunks of that size.
     """
     del precip_min  # kept for the JAX package's signature
@@ -345,6 +363,7 @@ def _steps_scan(
         prepare_cdf_matcher(precip_last, pwl_match) if probmatching == "cdf"
         else (None, None)
     )
+    chain_ok = use_chain and pm_match is pallas_histmatch.match_cdf_pwl
     mask_prec = mask_prec_init.expand(E, m, n)
     det_window = lags0 if need_det else None
     # the displacement is carried on a coarse grid (full-res pixel units)
@@ -419,25 +438,44 @@ def _steps_scan(
             )
             new_disps.append(disp_j)
 
-            if probmatching == "cdf":
-                field = pm_match(field, pm_state)
-            elif probmatching == "mean":
-                wet = field >= precip_thr
-                mu_fct = torch.where(wet, field, 0.0).sum(dim=(-2, -1), keepdim=True)
-                mu_fct = mu_fct / torch.clamp(wet.sum(dim=(-2, -1), keepdim=True), min=1)
-                field = torch.where(wet, field - mu_fct + mu_0, field)
-
-            if mask_method == "incremental":
-                new_masks.append(
-                    nowcast_utils.compute_dilated_mask_from_field(
-                        field, precip_thr, struct_radius, mask_rim
-                    )
+            if chain_ok:
+                # fused match + rim + warp (two kernel launches)
+                edges, d0, d1, q0, zval, ztrg = pallas_histmatch.build_pwl_coeffs(
+                    field.reshape(Ec, -1), pm_state
                 )
+                e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+                dy_f, disp_t = upsample_planes(disp_j, shape, coarse)
+                out_field, rim_new = pallas_chain.match_warp_rim(
+                    field.contiguous(), e8, T, q0, zval, ztrg, precip_thr, dy_f,
+                    disp_t, float("nan"), max_disp,
+                    struct_radius if struct_radius else 1,
+                    mask_rim if mask_rim else 0,
+                    do_rim=mask_method == "incremental",
+                )
+                if mask_method == "incremental":
+                    new_masks.append(rim_new)
+            else:
+                if probmatching == "cdf":
+                    field = pm_match(field, pm_state)
+                elif probmatching == "mean":
+                    wet = field >= precip_thr
+                    mu_fct = torch.where(wet, field, 0.0).sum(dim=(-2, -1), keepdim=True)
+                    mu_fct = mu_fct / torch.clamp(
+                        wet.sum(dim=(-2, -1), keepdim=True), min=1
+                    )
+                    field = torch.where(wet, field - mu_fct + mu_0, field)
 
-            out_field = model_warp_coarse(
-                field, disp_j, shape, coarse, max_disp=max_disp,
-                interp_order=interp_order, cval=float("nan"),
-            )
+                if mask_method == "incremental":
+                    new_masks.append(
+                        nowcast_utils.compute_dilated_mask_from_field(
+                            field, precip_thr, struct_radius, mask_rim
+                        )
+                    )
+
+                out_field = model_warp_coarse(
+                    field, disp_j, shape, coarse, max_disp=max_disp,
+                    interp_order=interp_order, cval=float("nan"),
+                )
             out[s, t] = torch.where(domain_mask, float("nan"), out_field).to(out.dtype)
 
         if noise:
@@ -573,6 +611,10 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
         member_chunk=member_chunk,
         max_disp=max_disp_scan,
         pwl_match=not on_cpu and pallas_histmatch.supported((m, n)),
+        use_chain=_chain_available(
+            cfg.probmatching_method, interp_order, max_disp_scan, (m, n),
+            not on_cpu,
+        ),
     )
     _sync(device)
     loop_time = time.time() - t_loop0

@@ -1,7 +1,9 @@
-"""Kernels K1-K4 (CUDA C++ under ``csrc/``) with their wrappers and plain
-PyTorch versions, and the warp primitives built on them."""
+"""The hand-written CUDA kernels (C++ under ``csrc/``) with their wrappers
+and plain PyTorch versions: K1-K4, the fused chain and the hierarchical
+and flat PWL maps; and the warp primitives built on them."""
 
 from pysteps_tpu_torch.ops import (  # noqa: F401
+    pallas_chain,
     pallas_dilate,
     pallas_histmatch,
     pallas_warp,

@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 LAUNCHES = dict.fromkeys(
     (
         "resample_axis0", "resample_axis1", "warp", "pwl_gather",
-        "rim_from_field", "rim_from_mask",
+        "rim_from_field", "rim_from_mask", "chain_match_vert_rim",
+        "chain_horiz", "pwl_hier", "pwl_flat",
     ),
     0,
 )
@@ -50,6 +51,14 @@ _SIGNATURES = {
     "pst_pwl_gather": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
     # field, thr, scratch, out, batch, m, n, kr, r, stream
     "pst_rim": (_vp, _f, _vp, _vp, _ll, _i, _i, _i, _i, _vp),
+    # field, e8, T, scal, dy, C, mask, batch, m, n, D, kr, r, thr, do_rim, halo, stream
+    "pst_chain_v": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _i, _vp),
+    # C, disp_t, out, batch, m, n, D, cval, stream
+    "pst_chain_h": (_vp, _vp, _vp, _ll, _i, _i, _i, _f, _vp),
+    # x, e16, M3, scal, out, batch, N, stream
+    "pst_pwl_hier": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
+    # x, edges, w, q0, out, batch, N, stream
+    "pst_pwl_flat": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
 }
 
 _lib = None

@@ -1,15 +1,20 @@
 """
 Piecewise-linear empirical-CDF matching: the LUT build in plain PyTorch
-and kernel K3, the PWL apply (counterpart of
+and the three PWL apply kernels (counterpart of
 ``pysteps_tpu/ops/pallas_histmatch.py``).
 
 The match is a monotone 128-knot piecewise-linear quantile map.  Per
 member and lead time, :func:`build_pwl_coeffs` places the knots, measures
 the forecast ranks at them, reads the target quantiles off the binned
 target CDF of :func:`prepare_target` and applies the wet-area-ratio
-adjustment; :func:`pack_gather_lut` repacks the coefficients into 8
-blocks of 16 knots; :func:`pwl_apply_gather` (K3, ``csrc/pwl.cu``) maps
-every pixel.  Everything is batched over a leading member axis.
+adjustment; :func:`match_cdf_pwl` then maps every pixel, dispatching as
+the JAX package does: :func:`pack_gather_lut` (8 blocks of 16 knots) and
+:func:`pwl_apply_gather` (K3, ``csrc/pwl.cu``) when the field tiles into
+the TPU kernel's 32-row chunks, else ``pallas_chain.pack_hier_lut`` (16
+blocks of 8) and :func:`pwl_apply_hier` (``csrc/pwl_variants.cu``).
+:func:`match_cdf_pwl_flat` applies the flat 128-edge form through
+:func:`pwl_apply` (``csrc/pwl_variants.cu``).  Everything is batched over
+a leading member axis.
 """
 
 import torch
@@ -18,7 +23,19 @@ from pysteps_tpu_torch.ops import _kernels
 
 K = 128  # PWL edges / CDF measurement points
 B_T = 16384  # target CDF bins
+_TILE = 2048  # rows of 128 pixels per grid step in the TPU kernels' tiling
 _RC = 64  # rows of 128 pixels per chunk in the TPU kernel's tiling
+
+
+def _tile_rows(rows):
+    """The TPU kernels' rows per grid step for a field of ``rows`` rows of
+    128 pixels; :func:`match_cdf_pwl` dispatches on it."""
+    if rows % _TILE == 0:
+        return _TILE
+    for tr in (_RC, 16, 8):
+        if rows % tr == 0:
+            return tr
+    return rows
 
 
 def supported(shape):
@@ -36,7 +53,9 @@ def prepare_target(ranked, zvalue_trg):
     tscale, n_wet_trg)."""
     tlo = ranked[0]
     thi = ranked[-1]
-    tscale = (B_T - 1.0) / torch.clamp(thi - tlo, min=1e-12)
+    # a true division, as the JAX package's: ``float / tensor`` would
+    # multiply by a rounded reciprocal and shift bin edges by an ulp
+    tscale = torch.full_like(thi, B_T - 1.0) / torch.clamp(thi - tlo, min=1e-12)
     tbins = torch.clamp(
         torch.round((ranked - tlo) * tscale).to(torch.int32), 0, B_T - 1
     )
@@ -147,6 +166,14 @@ def pack_gather_lut(edges, d0, d1):
     return eb[:, :, 0].contiguous(), T.contiguous()
 
 
+def _scalars(B, q0, zval, ztrg):
+    """The (B, 3) [q0, zval, ztrg] block the PWL kernels read per member."""
+    return torch.stack(
+        [torch.as_tensor(v, device=q0.device).expand(B) for v in (q0, zval, ztrg)],
+        dim=1,
+    ).to(torch.float32).contiguous()
+
+
 def _pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg):
     """Plain version of K3 on (B, N) with the kernel's summation order."""
     idx = torch.zeros(x.shape, dtype=torch.long, device=x.device)
@@ -176,9 +203,7 @@ def pwl_apply_gather(x, e8, T, q0, zval, ztrg):
     B, N = x.shape
     if e8.shape != (B, 8) or T.shape != (B, 8, 48):
         raise ValueError("pwl_apply_gather: e8 must be (B, 8), T (B, 8, 48)")
-    scal = torch.stack(
-        [q0.expand(B), zval.expand(B), ztrg.expand(B)], dim=1
-    ).to(torch.float32).contiguous()
+    scal = _scalars(B, q0, zval, ztrg)
     _kernels.check_inputs(
         "pwl_apply_gather", (x, e8, T, scal), (torch.float32,) * 4
     )
@@ -191,14 +216,136 @@ def pwl_apply_gather(x, e8, T, q0, zval, ztrg):
     return out
 
 
+def _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg):
+    """Plain version of the hierarchical kernel on (B, N), in its
+    summation order."""
+    B = x.shape[0]
+    g = torch.zeros(x.shape, dtype=torch.long, device=x.device)
+    for k in range(16):
+        g += (x >= e16[:, k : k + 1]).long()
+    sel = (M3[:, 0:24] + M3[:, 24:48]) + M3[:, 48:72]  # (B, 24, 16)
+    table = torch.cat([torch.zeros_like(sel[:, :, :1]), sel], dim=2)
+
+    def col(c):
+        return torch.gather(table[:, c], 1, g)
+
+    s0 = torch.zeros_like(x)
+    s1 = torch.zeros_like(x)
+    for f in range(7):
+        sf = (x >= col(f)).to(torch.float32)
+        s0 = s0 + col(7 + f) * sf
+        s1 = s1 + col(14 + f) * sf
+    out = q0.reshape(B, 1) + ((col(21) + s0) + x * (col(22) + s1))
+    return torch.where(x == zval.reshape(B, 1), ztrg.reshape(B, 1).expand_as(out), out)
+
+
+def pwl_apply_hier(x, e16, M3, q0, zval, ztrg):
+    """Hierarchical PWL map (replaces ``pwl_apply_hier``) of ``x`` (B, N)
+    with the dry override; ``e16`` (B, 16), ``M3`` (B, 72, 16) from
+    ``pallas_chain.pack_hier_lut``, ``q0``/``zval``/``ztrg`` (B,).  A pixel
+    below ``e16[:, 0]`` maps to ``q0``.  Works for any N."""
+    if not x.is_cuda:
+        return _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg)
+    B, N = x.shape
+    if e16.shape != (B, 16) or M3.shape != (B, 72, 16):
+        raise ValueError("pwl_apply_hier: e16 must be (B, 16), M3 (B, 72, 16)")
+    scal = _scalars(B, q0, zval, ztrg)
+    _kernels.check_inputs(
+        "pwl_apply_hier", (x, e16, M3, scal), (torch.float32,) * 4
+    )
+    out = torch.empty_like(x)
+    _kernels.launch(
+        "pst_pwl_hier", x.device, x.data_ptr(), e16.data_ptr(),
+        M3.data_ptr(), scal.data_ptr(), out.data_ptr(), B, N,
+    )
+    _kernels.LAUNCHES["pwl_hier"] += 1
+    return out
+
+
+def _pwl_apply_plain(x, edges, w, q0):
+    """Plain version of the flat kernel on (B, N): the 128 terms summed in
+    edge order."""
+    W0 = (w[:, 0] + w[:, 1]) + w[:, 2]
+    W1 = (w[:, 3] + w[:, 4]) + w[:, 5]
+    acc0 = torch.zeros_like(x)
+    acc1 = torch.zeros_like(x)
+    for j in range(K):
+        sf = (x >= edges[:, j : j + 1]).to(torch.float32)
+        acc0 = acc0 + W0[:, j : j + 1] * sf
+        acc1 = acc1 + W1[:, j : j + 1] * sf
+    return (q0.reshape(-1, 1) + acc0) + x * acc1
+
+
+def pwl_apply(x, edges, w, q0):
+    """Flat 128-edge PWL map (replaces ``pwl_apply``) of ``x`` (B, N):
+    ``q0 + cum @ (w0 + w1 + w2) + x * (cum @ (w3 + w4 + w5))`` with
+    ``cum_j = 1[x >= edges_j]``; ``edges`` (B, 128), ``w`` (B, 8, 128) of
+    bf16x3 delta rows (rows 6-7 unused), ``q0`` (B,).  No dry override.
+    Works for any N."""
+    if not x.is_cuda:
+        return _pwl_apply_plain(x, edges, w, q0)
+    B, N = x.shape
+    if edges.shape != (B, K) or w.shape != (B, 8, K):
+        raise ValueError("pwl_apply: edges must be (B, 128), w (B, 8, 128)")
+    q0 = q0.expand(B).to(torch.float32).contiguous()
+    _kernels.check_inputs(
+        "pwl_apply", (x, edges, w, q0), (torch.float32,) * 4
+    )
+    out = torch.empty_like(x)
+    _kernels.launch(
+        "pst_pwl_flat", x.device, x.data_ptr(), edges.data_ptr(),
+        w.data_ptr(), q0.data_ptr(), out.data_ptr(), B, N,
+    )
+    _kernels.LAUNCHES["pwl_flat"] += 1
+    return out
+
+
 def match_cdf_pwl(initial, tstate):
     """PWL CDF match of ``initial`` (B, ...) against the prepared target:
     rank-conserving value transfer, wet-area-ratio adjustment, dry-pixel
-    override.  Always applies through K3, whatever the field size."""
+    override.  Dispatches as the JAX package does
+    (``pysteps_tpu/ops/pallas_histmatch.py:473-478``): K3 when the field's
+    rows of 128 pixels tile into the TPU kernel's 32-row chunks, the
+    hierarchical map otherwise (where the two differ: a pixel below the
+    first knot maps to ``q0`` in the hierarchical map)."""
+    from pysteps_tpu_torch.ops.pallas_chain import pack_hier_lut
+
     B = initial.shape[0]
-    init = initial.reshape(B, -1)
+    init = initial.reshape(B, -1).contiguous()
     edges, d0, d1, q0, zvalue, zvalue_trg = build_pwl_coeffs(init, tstate)
-    e8, T = pack_gather_lut(edges, d0, d1)
     ztrg = torch.as_tensor(zvalue_trg, dtype=torch.float32, device=init.device)
-    out = pwl_apply_gather(init.contiguous(), e8, T, q0, zvalue, ztrg.expand(B))
+    if _tile_rows(init.shape[1] // 128) % 32 == 0:
+        e8, T = pack_gather_lut(edges, d0, d1)
+        out = pwl_apply_gather(init, e8, T, q0, zvalue, ztrg.expand(B))
+    else:
+        e16, M3 = pack_hier_lut(edges, d0, d1)
+        out = pwl_apply_hier(init, e16, M3, q0, zvalue, ztrg.expand(B))
+    return out.reshape(initial.shape)
+
+
+def flat_weights(d0, d1):
+    """The (B, 8, 128) weight block of :func:`pwl_apply`: the delta rows
+    ``d0`` and ``d1`` each split into three bf16-exact parts by masking
+    bits (not by a round trip through bf16), rows 6-7 zero."""
+    from pysteps_tpu_torch.ops.pallas_chain import _bf16_mask
+
+    def split3(vals):
+        a = _bf16_mask(vals)
+        r1 = vals - a
+        b = _bf16_mask(r1)
+        return a, b, r1 - b
+
+    rows = torch.stack(split3(d0) + split3(d1), dim=1)
+    return torch.cat([rows, d0.new_zeros((d0.shape[0], 2, K))], dim=1).contiguous()
+
+
+def match_cdf_pwl_flat(initial, tstate):
+    """Flat 128-edge variant of :func:`match_cdf_pwl` (the JAX package's
+    comparison path): the map through :func:`pwl_apply` with the weights
+    of :func:`flat_weights`, then the dry override."""
+    B = initial.shape[0]
+    init = initial.reshape(B, -1).contiguous()
+    edges, d0, d1, q0, zvalue, zvalue_trg = build_pwl_coeffs(init, tstate)
+    out = pwl_apply(init, edges.contiguous(), flat_weights(d0, d1), q0)
+    out = torch.where(init == zvalue[:, None], zvalue_trg, out)
     return out.reshape(initial.shape)

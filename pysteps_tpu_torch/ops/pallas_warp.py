@@ -69,16 +69,23 @@ def _round8(D):
     return int(-(-int(D) // 8) * 8)
 
 
-def _warp_fused_plain(field, dy, disp_t, D, cval, masked=True):
-    """Plain version of K2 (D already rounded up to a multiple of 8)."""
-    B, m, n = field.shape
-    dev = field.device
-    rows = torch.arange(m, device=dev, dtype=torch.int32)[:, None]
-    cols = torch.arange(n, device=dev, dtype=torch.int32)[None, :]
+def _warp_v_plain(field, dy, D):
+    """Vertical stage of K2: lerp along rows at ``i + dy`` (D already
+    rounded up to a multiple of 8)."""
+    rows = torch.arange(field.shape[1], device=field.device, dtype=torch.int32)[:, None]
     cy = rows.float() + dy
     y0 = torch.floor(cy)
     k = torch.clamp(y0.int(), rows - D, rows + D)
-    C = _gather_lerp(field, k, cy - y0, 1)
+    return _gather_lerp(field, k, cy - y0, 1)
+
+
+def _warp_h_plain(C, disp_t, D, cval, masked=True):
+    """Horizontal stage of K2 on the vertically resampled ``C``, with the
+    out-of-domain fill read from the transposed planes ``disp_t``."""
+    B, m, n = C.shape
+    dev = C.device
+    rows = torch.arange(m, device=dev, dtype=torch.int32)[:, None]
+    cols = torch.arange(n, device=dev, dtype=torch.int32)[None, :]
     dxt = disp_t[:, 0].transpose(1, 2)  # (B, m, n) view of the (n, m) plane
     cx = cols.float() + dxt
     x0 = torch.floor(cx)
@@ -89,6 +96,11 @@ def _warp_fused_plain(field, dy, disp_t, D, cval, masked=True):
         inside = (cyt >= 0) & (cyt <= m - 1) & (cx >= 0) & (cx <= n - 1)
         out = torch.where(inside, out, float(cval))
     return out
+
+
+def _warp_fused_plain(field, dy, disp_t, D, cval, masked=True):
+    """Plain version of K2 (D already rounded up to a multiple of 8)."""
+    return _warp_h_plain(_warp_v_plain(field, dy, D), disp_t, D, cval, masked)
 
 
 def warp_fused(field, dy, disp_t, D, cval, masked=True):

@@ -1,16 +1,19 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
-    python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE]
+    python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (96 members x 512^2 x 12 leads), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
-seconds, the device time by kernel group (the hand kernels K1-K4, FFTs,
-sorts, reductions, elementwise) and the device's idle share of the
-profiled run.  The per-kernel table goes to ``--out`` (default
-``build/profile_torch_steps.json``).
+seconds, the device time by kernel group (the hand kernels K1-K4, the
+two chain stages and the two other PWL maps, FFTs, sorts, reductions,
+elementwise) and the device's idle share of the profiled run.  The
+per-kernel table goes to ``--out`` (default
+``build/profile_torch_steps.json``).  ``--no-chain`` turns the fused
+match-rim-warp chain off, so that the loop runs K3, K4 and K2 as separate
+kernels: the path the chain replaced, for a comparison in one call.
 """
 
 import argparse
@@ -29,10 +32,14 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import BENCH_KWARGS, N_LEADS, N_MEMBERS, SIDE, bench_inputs  # noqa: E402
 from pysteps_tpu_torch import nowcasts  # noqa: E402
+from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
+from pysteps_tpu_torch.ops import _kernels  # noqa: E402
 
 # kernel-name substrings -> group, first match wins
 GROUPS = (
     ("pst_resample", "K1 resample"), ("pst_warp", "K2 warp"),
+    ("pst_chain_v", "chain match+vert+rim"), ("pst_chain_h", "chain horiz"),
+    ("pst_pwl_hier", "pwl hier"), ("pst_pwl_flat", "pwl flat"),
     ("pst_pwl", "K3 pwl"), ("pst_rim", "K4 rim"),
     ("fft", "fft"), ("sort", "sort"), ("radix", "sort"),
     ("reduce", "reduction"), ("elementwise", "elementwise"),
@@ -52,7 +59,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch_steps.json"))
+    ap.add_argument("--no-chain", action="store_true",
+                    help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     args = ap.parse_args()
+    if args.no_chain:
+        steps_mod._chain_available = lambda *a: False
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_steps: no CUDA device")
     smi = subprocess.run(
@@ -72,7 +83,13 @@ def main():
         torch.cuda.synchronize()
         return time.time() - t0, init_s, loop_s, out
 
+    _kernels.reset_launches()
     run(1)
+    # the flag patches the gate _steps_forecast reads; a run that took the
+    # other path would profile the wrong one
+    took_chain = _kernels.LAUNCHES["chain_horiz"] > 0
+    if took_chain == args.no_chain:
+        raise AssertionError(f"--no-chain={args.no_chain}, launches {_kernels.LAUNCHES}")
     runs = [run(2 + i)[:3] for i in range(args.runs)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _, _, out = run(100)
@@ -96,9 +113,9 @@ def main():
     mfs = [N_MEMBERS * N_LEADS / r[0] for r in runs]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": smi, "kernels": table}, f, indent=1)
+        json.dump({"card": smi, "chain": not args.no_chain, "kernels": table}, f, indent=1)
     print(json.dumps({
-        "card": smi, "torch": torch.__version__,
+        "card": smi, "torch": torch.__version__, "chain": not args.no_chain,
         "shape": [N_MEMBERS, N_LEADS, SIDE, SIDE],
         "runs_wall_init_loop_s": runs,
         "member_frames_per_s": mfs,

@@ -146,3 +146,23 @@ def test_prepare_cdf_matcher_selects_by_argument():
         ref = np.asarray(match_j(jnp.asarray(fields[b]), state_j))
         assert np.abs(srt[b] - ref).max() <= 1e-6 * span
     assert tph.supported((512, 512)) and not tph.supported((48, 100))
+
+
+def test_prepare_target_bins_like_jax():
+    """The bin scale is a true division, as the JAX package's: with
+    ``(B_T - 1.0) / span`` PyTorch multiplies by a rounded reciprocal,
+    which for this target is one ulp off and moves a bin boundary of C_t
+    (and with it a knot's target quantile by one bin)."""
+    rng = np.random.default_rng(9)
+    for _ in range(3):  # the member fields drawn before the target
+        rng.normal(0.0, 1.0, (128, 128))
+    target = np.sort(np.maximum(rng.normal(0.5, 3.0, 128 * 128), 0.0)).astype(np.float32)
+    ts_j = jph.prepare_target(jnp.asarray(target), jnp.float32(target[0]))
+    ts_t = tph.prepare_target(torch.from_numpy(target), torch.tensor(target[0]))
+    assert np.float32(ts_j[4]) == np.float32(ts_t[4].item())
+    np.testing.assert_array_equal(np.asarray(ts_j[2]), ts_t[2].numpy())
+    spans = np.random.default_rng(0).random(2000).astype(np.float32) * 50 + 0.1
+    for span in spans:
+        t = torch.tensor([0.0, span], dtype=torch.float32)
+        ref = np.float32(tph.B_T - 1.0) / np.float32(span)
+        assert tph.prepare_target(t, t[0])[4].item() == ref

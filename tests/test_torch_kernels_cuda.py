@@ -1,22 +1,27 @@
-"""Kernels K1-K4 of the PyTorch port on the card, against their plain
-PyTorch versions on the same CUDA inputs, at small odd shapes that the
-main path never gives them (grids that are not multiples of 8 or 32, one
-pixel, a rim radius wider than the grid).  ``chip_smoke.py`` holds them at
-the main path's shapes.
+"""The hand-written kernels of the PyTorch port on the card (K1-K4, the
+two stages of the fused chain, the hierarchical and flat PWL maps),
+against their plain PyTorch versions on the same CUDA inputs, at shapes
+that the main path never gives them (grids that are not multiples of 8 or
+32, one pixel, a rim radius wider than the grid or than a 48 KB block,
+fields at the chain gate's edge, members with distinct LUTs).
+``chip_smoke.py`` holds them at the main path's shapes.
 
 Every test needs a CUDA card and skips without one.  On the card:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Tolerances: 1e-5 x span for K1-K3 (one or two f32 lerps, or the same
-sum in the same order), 1e-6 for K4 (small integers held in floats).
+Tolerances: 1e-5 x span for K1-K3, the chain's resamples and the PWL
+maps (one or two f32 lerps, or the same sum in the same order), 1e-6 for
+the rims (small integers held in floats).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pysteps_tpu_torch.ops import _kernels, pallas_dilate, pallas_histmatch, pallas_warp
+from pysteps_tpu_torch.ops import (
+    _kernels, pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,26 +92,131 @@ def test_k2_warp(dev, masked, D):
     _close(out, ref, 1e-5 * float(field.max() - field.min()))
 
 
+def _pwl_case(gen, dev, B, N):
+    """Per-member PWL coefficients for a (B, N) field (each member drawn
+    with its own scale, so each has its own LUT), the field and the
+    target's dry value."""
+    size = max(N, 256)
+    target = torch.randn(size, generator=gen, device=dev) * 4.0
+    target = torch.where(target > -1.0, target, -1.0)
+    ranked = torch.sort(target).values
+    tstate = pallas_histmatch.prepare_target(ranked, ranked[0])
+    scale = torch.linspace(2.0, 4.0, B, device=dev)[:, None]
+    x = torch.randn((B, size), generator=gen, device=dev) * scale
+    x = torch.where(x > -2.0, x, -2.0)
+    return pallas_histmatch.build_pwl_coeffs(x, tstate), x[:, :N].contiguous()
+
+
 @pytest.mark.parametrize("N", [1, 1000, 40 * 128])
 def test_k3_pwl_gather(dev, N):
     """Any pixel count works: no row tiling, no rows % 32 trap."""
     gen = torch.Generator(device=dev).manual_seed(N)
     B = 3
-    target = torch.randn(max(N, 256), generator=gen, device=dev) * 4.0
-    target = torch.where(target > -1.0, target, -1.0)
-    ranked = torch.sort(target).values
-    tstate = pallas_histmatch.prepare_target(ranked, ranked[0])
-    x = torch.randn((B, max(N, 256)), generator=gen, device=dev) * 3.0
-    x = torch.where(x > -2.0, x, -2.0)
-    edges, d0, d1, q0, zval, ztrg = pallas_histmatch.build_pwl_coeffs(x, tstate)
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, N)
     e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
-    x = x[:, :N].contiguous()
     ztrg = ztrg.expand(B)
     before = _kernels.LAUNCHES["pwl_gather"]
     out = pallas_histmatch.pwl_apply_gather(x, e8, T, q0, zval, ztrg)
     assert _kernels.LAUNCHES["pwl_gather"] == before + 1
     ref = pallas_histmatch._pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg)
     _close(out, ref, 1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("N", [1, 1000, 200 * 128])
+def test_pwl_hier(dev, N):
+    """Any pixel count; pixels below the first block start give q0."""
+    gen = torch.Generator(device=dev).manual_seed(N + 1)
+    B = 3
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, N)
+    x[:, :1] = edges[:, :1] - 1.0
+    e16, M3 = pallas_chain.pack_hier_lut(edges, d0, d1)
+    ztrg = ztrg.expand(B)
+    before = _kernels.LAUNCHES["pwl_hier"]
+    out = pallas_histmatch.pwl_apply_hier(x, e16, M3, q0, zval, ztrg)
+    assert _kernels.LAUNCHES["pwl_hier"] == before + 1
+    ref = pallas_histmatch._pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg)
+    _close(out, ref, 1e-5 * float(ref.abs().max()))
+    _close(out[:, 0], q0, 0.0)
+
+
+@pytest.mark.parametrize("N", [1, 1000, 40 * 128])
+def test_pwl_flat(dev, N):
+    gen = torch.Generator(device=dev).manual_seed(N + 2)
+    B = 3
+    (edges, d0, d1, q0, _, _), x = _pwl_case(gen, dev, B, N)
+    w = torch.cat([torch.stack([d0, d0 * 0.0, d0 * 0.0, d1, d1 * 0.0, d1 * 0.0], dim=1),
+                   torch.zeros((B, 2, 128), device=dev)], dim=1).contiguous()
+    before = _kernels.LAUNCHES["pwl_flat"]
+    out = pallas_histmatch.pwl_apply(x, edges.contiguous(), w, q0)
+    assert _kernels.LAUNCHES["pwl_flat"] == before + 1
+    ref = pallas_histmatch._pwl_apply_plain(x, edges, w, q0)
+    _close(out, ref, 1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize(
+    "shape,D,kr,r,do_rim",
+    [
+        ((3, 37, 53), 13, 2, 10, True),
+        ((2, 37, 53), 48, 3, 5, False),
+        ((1, 9, 10), 8, 1, 40, True),  # rim wider than the grid, > 48 KB block
+        ((2, 384, 768), 48, 2, 10, True),  # 1,179,648 B: just inside the gate
+        ((2, 512, 512), 48, 2, 10, True),
+    ],
+)
+def test_chain_stages(dev, shape, D, kr, r, do_rim):
+    """Both stages and the whole chain against the plain versions, with
+    displacements beyond D and a different LUT per member."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + D)
+    B, m, n = shape
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, m * n)
+    e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+    field = x.reshape(B, m, n).contiguous()
+    disp = _disp(gen, dev, B, m, n, 1.5 * D)
+    dy = disp[:, 1].contiguous()
+    disp_t = disp.transpose(-1, -2).contiguous()
+    nan = float("nan")
+    # a threshold that leaves ~0.5% of the matched pixels wet
+    matched = pallas_histmatch._pwl_apply_gather_plain(
+        field.reshape(B, -1), e8, T, q0, zval, ztrg.expand(B))
+    thr = float(torch.quantile(matched, 0.995))
+    before = dict(_kernels.LAUNCHES)
+    C, rim = pallas_chain.chain_match_vert_rim(
+        field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim)
+    C_ref, rim_ref = pallas_chain._chain_v_plain(
+        field, e8, T, q0, zval, ztrg.expand(B), thr, dy, -(-D // 8) * 8, kr, r, do_rim)
+    span = float(C_ref.max() - C_ref.min())
+    _close(C, C_ref, 1e-5 * span)
+    _close(rim, rim_ref, 1e-6)
+    if do_rim:
+        assert 0.0 < float(rim.mean()) < 1.0
+    out = pallas_chain.chain_horiz(C, disp_t, D, nan)
+    _close(out, pallas_warp._warp_h_plain(C, disp_t, -(-D // 8) * 8, nan), 1e-5 * span)
+    full, full_rim = pallas_chain.match_warp_rim(
+        field, e8, T, q0, zval, ztrg, thr, dy, disp_t, nan, D, kr, r, do_rim)
+    ref, ref_rim = pallas_chain._match_warp_rim_plain(
+        field, e8, T, q0, zval, ztrg, thr, dy, disp_t, nan, D, kr, r, do_rim)
+    _close(full, ref, 1e-5 * span)
+    _close(full_rim, ref_rim, 1e-6)
+    assert bool(torch.isnan(ref).any())
+    assert _kernels.LAUNCHES["chain_match_vert_rim"] == before["chain_match_vert_rim"] + 2
+    assert _kernels.LAUNCHES["chain_horiz"] == before["chain_horiz"] + 2
+
+
+@pytest.mark.parametrize("halo", [12, 20, 49])
+def test_chain_halo_changes_work_not_result(dev, halo):
+    """Stage 1 re-matches taps outside its halo from the field: any halo
+    that holds the rim gives the default's result bit for bit (49 = D + 1
+    never re-matches and needs more than 48 KB of shared memory)."""
+    gen = torch.Generator(device=dev).manual_seed(halo)
+    B, m, n, D = 2, 300, 160, 48
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, m * n)
+    e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+    field = x.reshape(B, m, n).contiguous()
+    dy = _disp(gen, dev, B, m, n, 1.5 * D)[:, 1].contiguous()
+    args = (field, e8, T, q0, zval, ztrg, 0.0, dy, D, 2, 10, True)
+    C, rim = pallas_chain.chain_match_vert_rim(*args)
+    C_h, rim_h = pallas_chain.chain_match_vert_rim(*args, halo=halo)
+    assert torch.equal(C, C_h) and torch.equal(rim, rim_h)
 
 
 @pytest.mark.parametrize("kr,r", [(1, 1), (2, 10), (3, 6)])
@@ -137,3 +247,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         pallas_warp.warp_fused(f, f, f, 8, 0.0)
     with pytest.raises(ValueError):
         pallas_dilate.dilated_rim_from_field(f.double(), 0.5, 1, 1)
+    e8, T = torch.zeros((2, 8), device=dev), torch.zeros((2, 8, 48), device=dev)
+    q = torch.zeros(2, device=dev)
+    with pytest.raises(ValueError):
+        pallas_chain.match_warp_rim(f, e8, T, q, q, q, 0.0, f, f, 0.0, 8, 2, 10)
+    with pytest.raises(ValueError):
+        pallas_histmatch.pwl_apply_hier(
+            f.reshape(2, -1), q[:, None].expand(2, 16), T, q, q, q)
+    with pytest.raises(ValueError):
+        pallas_histmatch.pwl_apply(f.reshape(2, -1), T.reshape(2, -1)[:, :100], T, q)

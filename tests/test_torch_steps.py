@@ -9,8 +9,11 @@ domain).
     within 1e-3 x span, identical NaN sets.  The explicit bound drives the
     kernel-semantics path (K1 on the coarse carry, K2, K4) through the
     plain versions.  Once with the sort matcher against the JAX package's
-    CPU path, once with the PWL matcher against its TPU path (the Pallas
-    kernels in interpret mode).
+    CPU path; against its TPU path (the Pallas kernels in interpret mode)
+    once with the PWL matcher (K3), once with the fused match-rim-warp
+    chain (``use_chain=True`` on both sides) and once at 160^2, where the
+    field's 200 rows of 128 do not tile into 32 and both packages apply
+    the hierarchical PWL map.
 (b) The deterministic configuration through the public ``forecast``:
     within 1e-3 x span, identical NaN sets.
 (c) The stochastic configuration through ``forecast``: CRPS against the
@@ -42,6 +45,8 @@ from pysteps_tpu.utils import tapering as jtaper  # noqa: E402
 from pysteps_tpu_torch import nowcasts as tnowcasts  # noqa: E402
 from pysteps_tpu_torch.noise import fftgenerators as tfft  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as tsteps  # noqa: E402
+from pysteps_tpu_torch.ops import pallas_chain as tchain  # noqa: E402
+from pysteps_tpu_torch.ops import pallas_histmatch as thist  # noqa: E402
 
 SIDE = 128
 KW = dict(
@@ -55,16 +60,16 @@ def _to_db(x):
     return np.where(x >= 0.1, 10.0 * np.log10(np.maximum(x, 0.1)), -15.0).astype(np.float32)
 
 
-def _inputs(n_frames=3, evolution=0.0):
-    """A 128^2 sequence with dry areas (made at 256^2 and subsampled) and
+def _inputs(n_frames=3, evolution=0.0, side=SIDE):
+    """A side^2 sequence with dry areas (made at 2 side and subsampled) and
     a non-integer motion of (1.7, 0.6) px per step: with an integer one,
     sampling positions land within rounding of the domain edge and the
     NaN set would hang on FFT rounding."""
     frames = make_synthetic_sequence(
-        n_frames=n_frames, shape=(2 * SIDE, 2 * SIDE), velocity=(3.4, 1.2),
+        n_frames=n_frames, shape=(2 * side, 2 * side), velocity=(3.4, 1.2),
         seed=42, evolution=evolution,
     )[:, ::2, ::2]
-    velocity = np.zeros((2, SIDE, SIDE), np.float32)
+    velocity = np.zeros((2, side, side), np.float32)
     velocity[0], velocity[1] = 1.7, 0.6
     return frames, velocity
 
@@ -82,26 +87,29 @@ def _close(ref, out, rel=1e-3, of_max=False):
     assert err <= rel * max(scale, 1e-6), (err, scale)
 
 
-@pytest.fixture(params=[False, True], ids=["sort", "pwl"])
+@pytest.fixture(params=["sort", "pwl", "chain", "hier160"])
 def pallas_path(request, monkeypatch):
-    """True: the JAX package takes its TPU path on the CPU (Pallas kernels
-    in interpret mode, PWL matcher); its jit caches are cleared around the
-    test, since they do not key on the switch."""
-    if request.param:
+    """Any path but "sort": the JAX package takes its TPU path on the CPU
+    (Pallas kernels in interpret mode, PWL matcher); its jit caches are
+    cleared around the test, since they do not key on the switch."""
+    pallas = request.param != "sort"
+    if pallas:
         monkeypatch.setattr(jwarp, "_use_pallas_cache", True)
         for mod in (pallas_warp, pallas_dilate, pallas_histmatch, pallas_chain):
             monkeypatch.setattr(mod, "INTERPRET", True)
         jax.clear_caches()
     yield request.param
-    if request.param:
+    if pallas:
         jax.clear_caches()
 
 
 def test_init_and_scan_value_by_value(monkeypatch, pallas_path):
-    frames, velocity = _inputs()
+    side = 160 if pallas_path == "hier160" else SIDE
+    use_chain = pallas_path == "chain"
+    frames, velocity = _inputs(side=side)
     precip = _to_db(frames)
     E, T, max_disp = 4, 4, 48
-    m = n = SIDE
+    m = n = side
     w = np.array(jcascade.get_method("gaussian")((m, n), 8)["weights_2d"], np.float32)
     taper = jtaper.compute_window_function(m, n, "tukey").astype(np.float32)
     key_members, key_vel = jax.random.split(jax.random.PRNGKey(42), 3)[1:]
@@ -137,6 +145,12 @@ def test_init_and_scan_value_by_value(monkeypatch, pallas_path):
         draws.append(torch.from_numpy(np.stack(step)))
     it = iter(draws)
     monkeypatch.setattr(tfft, "_spectral_phase_white", lambda g, s, b: next(it))
+    calls = {"match_warp_rim": 0, "pwl_apply_hier": 0}
+    for mod, name in ((tchain, "match_warp_rim"), (thist, "pwl_apply_hier")):
+        def counted(*a, _f=getattr(mod, name), _n=name, **k):
+            calls[_n] += 1
+            return _f(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
 
     vsf = 60.0 / 5.0
     p_par = tuple(float(v) for v in jsteps.get_default_params_bps_par())
@@ -156,7 +170,7 @@ def test_init_and_scan_value_by_value(monkeypatch, pallas_path):
         j_par.precip_min, jnp.float32(-10.0), j_par.war, j_par.mu_0,
         jnp.asarray(domain_mask), j_st.eps_par, j_st.eps_perp,
         j_par.velocity_unit, j_par.velocity_perp, jnp.float32(vsf),
-        p_par, p_perp, T, use_chain=False, **cfg,
+        p_par, p_perp, T, use_chain=use_chain, **cfg,
     )
     par, st = tsteps.params_from_numpy(
         {f.name: np.asarray(getattr(j_par, f.name))
@@ -171,8 +185,11 @@ def test_init_and_scan_value_by_value(monkeypatch, pallas_path):
         torch.from_numpy(ones), par.means, par.stds, par.precip_last,
         par.precip_min, -10.0, par.war, par.mu_0, torch.from_numpy(domain_mask),
         st.eps_par, st.eps_perp, par.velocity_unit, par.velocity_perp, vsf,
-        p_par, p_perp, T, pwl_match=pallas_path, **cfg,
+        p_par, p_perp, T, pwl_match=pallas_path != "sort", use_chain=use_chain,
+        **cfg,
     )
+    assert calls["match_warp_rim"] == (T if use_chain else 0)
+    assert (calls["pwl_apply_hier"] > 0) == (pallas_path == "hier160")
     assert np.isnan(np.asarray(ref)).any()
     _close(ref, out)
 

@@ -208,3 +208,20 @@ def test_coarse_chain_upsample_and_model_warp_coarse():
             jnp.asarray(field[b]), d_j[b], (m, n), coarse, max_disp=48
         )
         _close(ref, out[b], float(np.ptp(field)))
+
+
+@pytest.mark.parametrize("coarse", [1, 4])
+def test_upsample_planes_batched(coarse):
+    """The port's upsample_planes on a (B, 2, mc, nc) batch gives, member
+    by member, the JAX function's dy (m, n) and disp_t (2, n, m): the
+    planes the chain and K2 read."""
+    rng = np.random.default_rng(5)
+    m, n, B = 64, 96, 3
+    disp_c = rng.normal(0.0, 3.0, (B, 2, m // coarse, n // coarse)).astype(np.float32)
+    dy_t, dt_t = tsl.upsample_planes(torch.from_numpy(disp_c), (m, n), coarse)
+    assert dy_t.shape == (B, m, n) and dt_t.shape == (B, 2, n, m)
+    assert dy_t.is_contiguous() and dt_t.is_contiguous()
+    for b in range(B):
+        dy_j, dt_j = jsl.upsample_planes(jnp.asarray(disp_c[b]), (m, n), coarse)
+        _close(dy_j, dy_t[b], float(np.ptp(disp_c)))
+        _close(dt_j, dt_t[b], float(np.ptp(disp_c)))
