@@ -9,15 +9,16 @@ Phases, each printing JSON lines:
    versions;
 2. build: the hand-written kernels of ``pysteps_tpu_torch/csrc`` compiled
    with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
-3. kernels: each hand-written kernel (K1 resample on both axes, K2 warp,
-   K3 PWL apply, K4 rim from a field and from a mask, the two stages of
-   the fused match-rim-warp chain, the hierarchical and the flat PWL maps)
-   at the shapes its path gives it, held against its plain PyTorch version
-   on the same CUDA inputs, with its time, the plain version's, a library
-   yardstick where one PyTorch call comes close, and its bound.  The chain
-   runs on the inputs of path A's last lead, recorded from one forecast
-   with each lead's share of vertical taps outside stage 1's halo, and is
-   timed beside K3 -> K4 -> K2 on those inputs and with a halo of D + 1;
+3. kernels: each of the eleven rows (K1 resample on axis 0 and on axis 1,
+   K2 warp, K3 PWL apply, K4 rim from a field and from a mask, the two
+   stages of the fused match-rim-warp chain, the hierarchical and the flat
+   PWL maps, the CDF counts) at the shapes its path gives it, held against
+   its plain PyTorch version on the same CUDA inputs, with its time, the
+   plain version's, a library yardstick where PyTorch calls come close,
+   and its bound.  The chain and the CDF counts run on the inputs of path
+   A's last lead, recorded from one forecast with each lead's share of
+   vertical taps outside stage 1's halo; the chain is timed beside
+   K3 -> K4 -> K2 on those inputs and with a halo of D + 1;
 4. parity: the deterministic STEPS loop at 256^2 through the chain on the
    card against the plain chain on the CPU, same statics;
 5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
@@ -27,6 +28,10 @@ Phases, each printing JSON lines:
 7. path C: the same at 320^2 (rows of 128 that do not tile into 32: the
    hierarchical PWL map, K4, K2);
 8. path D: the public ``match_cdf_pwl_flat`` on 96 members x 512^2;
+9. path E: the public ``cdf_counts`` on the 96 x 512^2 fields of path A's
+   last lead at the 128 edges its PWL LUT build placed, bit-equal to the
+   plain version (whose last 16 counts are the build's exact tail
+   counts);
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -209,11 +214,18 @@ def _capture_chain_leads():
     """Path A once, outside any counted run, recording each lead's chain
     call: the largest displacements, the share of vertical taps outside
     the default halo, and the last lead's inputs (the largest
-    displacements of the forecast)."""
+    displacements of the forecast) with the edges of the PWL LUT build
+    that made its LUT."""
     precip_db, velocity = bench_inputs(SIDE)
     dev = torch.device("cuda")
-    leads, last = [], {}
+    leads, last, build = [], {}, {}
     real = pallas_chain.match_warp_rim
+    real_build = pallas_histmatch.build_pwl_coeffs
+
+    def build_recording(init, tstate):
+        coeffs = real_build(init, tstate)
+        build["edges"] = coeffs[0]
+        return coeffs
 
     def recording(field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r,
                   do_rim=True):
@@ -224,34 +236,38 @@ def _capture_chain_leads():
             "halo_miss_share": _halo_miss_share(dy, pallas_warp._round8(D), halo),
         })
         last.update(field=field, e8=e8, T=T, q0=q0, zval=zval, ztrg=ztrg, thr=thr,
-                    dy=dy, disp_t=disp_t, cval=cval, D=D, kr=kr, r=r, do_rim=do_rim)
+                    dy=dy, disp_t=disp_t, cval=cval, D=D, kr=kr, r=r, do_rim=do_rim,
+                    edges=build["edges"])
         return real(field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r,
                     do_rim)
 
     pallas_chain.match_warp_rim = recording
+    pallas_histmatch.build_pwl_coeffs = build_recording
     try:
         nowcasts.get_method("steps")(
             torch.as_tensor(precip_db, device=dev), torch.as_tensor(velocity, device=dev),
             N_LEADS, **BENCH_KWARGS)
     finally:
         pallas_chain.match_warp_rim = real
+        pallas_histmatch.build_pwl_coeffs = real_build
     if len(leads) != N_LEADS:
         raise AssertionError(f"path A called the chain {len(leads)} times, not {N_LEADS}")
     return leads, last
 
 
-def phase_kernels(peaks):
-    """Each kernel against its plain version at the shapes its path gives
-    it: K1, K4 from a mask and the chain at path A's, K2, K3 and K4 from a
-    field at path B's (K2 and K4 also at path C's, as the row's ``at_C``),
-    the hierarchical map at path C's, the flat map at path D's."""
+def phase_kernels(peaks, leads, captured):
+    """Each of the eleven rows against its plain version at the shapes its
+    path gives it: K1 on both axes, K4 from a mask and the chain's two
+    stages at path A's, K2, K3 and K4 from a field at path B's (K2 and K4
+    also at path C's, as the row's ``at_C``), the hierarchical map at path
+    C's, the flat map at path D's, the CDF counts at path E's.  ``leads``
+    and ``captured`` are :func:`_capture_chain_leads`' record of path A."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     recs = []
     E, m = N_MEMBERS, SIDE
     mc = m // 4
     nan = float("nan")
-    leads, captured = _capture_chain_leads()
     # paths B and C run the same motion for PATH_B[2] leads
     lead = leads[PATH_B[2] - 1]
     disp_bc = max(lead["max_abs_dx"], lead["max_abs_dy"])
@@ -302,8 +318,13 @@ def phase_kernels(peaks):
             nb, 4 * fields.numel(), peaks, "A", shape=list(fields.shape),
         ))
 
-    # 7 coarse compares, 15 x (compare + 2 multiply-adds), the affine end
-    pwl_ops = 7 + 15 * 5 + 4
+    # Operations are the least a pixel needs for the function, not what a
+    # kernel's design spends: a value is placed among 128 sorted edges or
+    # knots (sorted once per member, with their indices) by 8 compares; a
+    # PWL map then takes its segment's multiply-add and the dry override's
+    # compare and select, the counts one histogram increment
+    search_ops = 8
+    pwl_ops = search_ops + 4
     R = 12
     rim_ops = 4 * (2 * R + 1)
 
@@ -377,8 +398,7 @@ def phase_kernels(peaks):
         cuda_ms(lambda: pallas_histmatch._pwl_apply_hier_plain(*hier_args), 3),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * xc.numel() + e16.numel() + M3.numel() + 3 * E_c),
-        # 16 coarse compares, 7 x (compare + 2 multiply-adds), the affine end
-        (16 + 7 * 5 + 5) * xc.numel(), peaks, "C", shape=list(xc.shape),
+        pwl_ops * xc.numel(), peaks, "C", shape=list(xc.shape),
     )
     k2_c, k4_c = k2_k4(E_c, side_c, xc, "C")
     del xc, hier_args, ref
@@ -414,10 +434,36 @@ def phase_kernels(peaks):
         cuda_ms(lambda: pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0), 2),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * x.numel() + edges_f.numel() + w.numel() + E),
-        # 128 x (compare + 2 adds), the affine end
-        (128 * 3 + 3) * x.numel(), peaks, "D", shape=list(x.shape),
+        # no dry override in this map
+        (search_ops + 2) * x.numel(), peaks, "D", shape=list(x.shape),
     ))
     del x, ref
+
+    # the CDF counts on path E's inputs: path A's last lead and its edges
+    xe = captured["field"].reshape(E, -1)
+    edges_e = captured["edges"].contiguous()
+    n_px = xe.shape[1]
+
+    def sort_search():
+        return n_px - torch.searchsorted(torch.sort(xe, dim=1).values, edges_e)
+
+    counts = pallas_histmatch.cdf_counts(xe, edges_e)
+    recs.append(_record(
+        "cdf_counts", "pysteps_tpu_torch/csrc/cdf.cu",
+        "pysteps_tpu/ops/pallas_histmatch.py:236", "cdf_counts",
+        counts, pallas_histmatch._cdf_counts_plain(xe, edges_e), 0.0,
+        cuda_ms(lambda: pallas_histmatch.cdf_counts(xe, edges_e)),
+        cuda_ms(lambda: pallas_histmatch._cdf_counts_plain(xe, edges_e), 2),
+        cuda_ms(sort_search),
+        "torch.sort + torch.searchsorted (two calls; the same counts only for "
+        "sorted edges without NaN)",
+        # the field read once, the edges read, the counts written
+        4 * xe.numel() + 4 * 2 * edges_e.numel(),
+        # the search and one increment a pixel; the per-member sort of the
+        # edges and the suffix sum of the 129 bins are negligible beside it
+        (search_ops + 1) * xe.numel(), peaks, "E", shape=list(xe.shape),
+        library_same_counts=torch.equal(sort_search().to(torch.float32), counts),
+    ))
 
     # the chain on path A's own inputs: its last lead, recorded from a
     # forecast at the headline configuration
@@ -606,8 +652,9 @@ def _k1_launches(T):
     return AR_ORDER * 2 + 1 + 2 * T
 
 
-def phase_paths(name, smi):
-    """Paths A-D, each with its exact launch counts; returns them by path."""
+def phase_paths(name, smi, captured):
+    """Paths A-E, each with its exact launch counts; returns them by path.
+    ``captured`` holds path A's last lead (:func:`_capture_chain_leads`)."""
     by_path = {}
     k1 = _k1_launches(N_LEADS)
     # A: every lead runs the chain's two stages; the init one rim of a mask
@@ -656,6 +703,36 @@ def phase_paths(name, smi):
     emit({"phase": "path D", "shape": list(flat.shape), "wall_s": wall,
           "max_abs_diff_flat_vs_gather": err, "tol": tol,
           "launches": by_path["D"], "device": name, "nvidia_smi": smi})
+    del fields, flat, gather
+
+    # E: the public cdf_counts on path A's last lead, at the edges its LUT
+    # build placed; all 128 counts bit-equal to the plain version, whose
+    # last 16 are the build's exact tail counts #(x >= e_j), the same
+    # compare and sum
+    field, edges = captured["field"], captured["edges"]
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.time()
+    counts = pallas_histmatch.cdf_counts(field, edges)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    by_path["E"] = dict(_kernels.LAUNCHES)
+    expected = dict(dict.fromkeys(by_path["E"], 0), cdf_counts=1)
+    if by_path["E"] != expected:
+        raise AssertionError(f"E: launches {by_path['E']} != expected {expected}")
+    n_px = field[0].numel()
+    if tuple(counts.shape) != (field.shape[0], 128) or not bool(torch.isfinite(counts).all()):
+        raise AssertionError(f"E: counts of shape {tuple(counts.shape)} or not finite")
+    if not torch.equal(counts, pallas_histmatch._cdf_counts_plain(field.reshape(len(field), -1),
+                                                                   edges)):
+        raise AssertionError("E: the counts differ from the plain version's")
+    # the build sorts its edges, so the counts fall from at most n_px
+    if not (bool((counts[:, 1:] <= counts[:, :-1]).all()) and float(counts.max()) <= n_px):
+        raise AssertionError("E: the counts do not fall along the sorted edges")
+    emit({"phase": "path E", "shape": list(field.shape), "wall_s": wall,
+          "equal_to_plain": True, "counts_first_last_member0": [
+              float(counts[0, 0]), float(counts[0, -1])],
+          "launches": by_path["E"], "device": name, "nvidia_smi": smi})
     return by_path
 
 
@@ -663,9 +740,10 @@ def main():
     name, smi = phase_device()
     peaks = card_peaks(name)
     phase_build()
-    recs = phase_kernels(peaks)
+    leads, captured = _capture_chain_leads()
+    recs = phase_kernels(peaks, leads, captured)
     phase_parity()
-    by_path = phase_paths(name, smi)
+    by_path = phase_paths(name, smi, captured)
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}
@@ -674,7 +752,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
-             "unfused_ms", "halo", "halo_D1", "ms_halo_D1")
+             "unfused_ms", "halo", "halo_D1", "ms_halo_D1", "library_same_counts")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})

@@ -36,7 +36,7 @@ LAUNCHES = dict.fromkeys(
     (
         "resample_axis0", "resample_axis1", "warp", "pwl_gather",
         "rim_from_field", "rim_from_mask", "chain_match_vert_rim",
-        "chain_horiz", "pwl_hier", "pwl_flat",
+        "chain_horiz", "pwl_hier", "pwl_flat", "cdf_counts",
     ),
     0,
 )
@@ -59,6 +59,8 @@ _SIGNATURES = {
     "pst_pwl_hier": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
     # x, edges, w, q0, out, batch, N, stream
     "pst_pwl_flat": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
+    # x, edges, out (int32, zeroed by the entry point), batch, N, stream
+    "pst_cdf_counts": (_vp, _vp, _vp, _ll, _ll, _vp),
 }
 
 _lib = None

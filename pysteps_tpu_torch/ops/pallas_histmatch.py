@@ -13,8 +13,10 @@ the JAX package does: :func:`pack_gather_lut` (8 blocks of 16 knots) and
 the TPU kernel's 32-row chunks, else ``pallas_chain.pack_hier_lut`` (16
 blocks of 8) and :func:`pwl_apply_hier` (``csrc/pwl_variants.cu``).
 :func:`match_cdf_pwl_flat` applies the flat 128-edge form through
-:func:`pwl_apply` (``csrc/pwl_variants.cu``).  Everything is batched over
-a leading member axis.
+:func:`pwl_apply` (``csrc/pwl_variants.cu``).  :func:`cdf_counts`
+(``csrc/cdf.cu``) counts the pixels at or above 128 edges exactly; the
+LUT build keeps its own plain counts of the 16 tail edges, as the JAX
+package's does.  Everything is batched over a leading member axis.
 """
 
 import torch
@@ -349,3 +351,55 @@ def match_cdf_pwl_flat(initial, tstate):
     out = pwl_apply(init, edges.contiguous(), flat_weights(d0, d1), q0)
     out = torch.where(init == zvalue[:, None], zvalue_trg, out)
     return out.reshape(initial.shape)
+
+
+_PLAIN_CHUNK = 1 << 24  # elements of the plain version's compare per step
+
+
+def _cdf_counts_plain(x, edges):
+    """Plain version of :func:`cdf_counts` on ``x`` (B, N) and ``edges``
+    (B, 128): integer compare-and-count over chunks of pixels, converted to
+    f32 once."""
+    B, N = x.shape
+    counts = torch.zeros((B, K), dtype=torch.int64, device=x.device)
+    step = max(1, _PLAIN_CHUNK // max(B * K, 1))
+    for p in range(0, N, step):
+        counts += (x[:, None, p : p + step] >= edges[:, :, None]).sum(dim=2)
+    return counts.to(torch.float32)
+
+
+def cdf_counts(field, edges):
+    """Exact counts ``#(x >= edges[j])`` at 128 edges (replaces
+    ``cdf_counts``).
+
+    ``edges`` (128,): counted over every pixel of ``field`` (any shape),
+    returns (128,), the JAX function's form.  ``edges`` (B, 128) with
+    ``field`` (B, ...): counted per member, returns (B, 128), as
+    ``vmap(cdf_counts)``.  Every edge is compared with every pixel: edges
+    need not be sorted, a NaN edge counts 0, a NaN pixel counts under no
+    edge.  The counts are integers converted to f32 once, so they are exact
+    below 2^24 pixels a member (where the JAX function's f32 sums are exact
+    too) and the nearest f32 above.  Any pixel count works on the card (the
+    TPU kernel needs a multiple of 128); at most 2^31 - 1 a member."""
+    if edges.shape[-1] != K or edges.dim() not in (1, 2):
+        raise ValueError(f"cdf_counts: edges must be ({K},) or (B, {K}), got {tuple(edges.shape)}")
+    batched = edges.dim() == 2
+    B = edges.shape[0] if batched else 1
+    if batched and (field.dim() < 1 or field.shape[0] != B):
+        raise ValueError("cdf_counts: field must be (B, ...) for edges (B, 128)")
+    if not field.is_cuda:
+        out = _cdf_counts_plain(field.reshape(B, -1), edges.reshape(B, K))
+        return out if batched else out[0]
+    _kernels.check_inputs("cdf_counts", (field, edges), (torch.float32,) * 2)
+    x = field.view(B, -1)
+    N = x.shape[1]
+    if N >= 2**31:
+        raise ValueError("cdf_counts: at most 2^31 - 1 pixels a member")
+    counts = torch.empty((B, K), dtype=torch.int32, device=x.device)
+    _kernels.launch(
+        "pst_cdf_counts", x.device, x.data_ptr(), edges.data_ptr(),
+        counts.data_ptr(), B, N,
+    )
+    _kernels.LAUNCHES["cdf_counts"] += 1
+    out = counts.to(torch.float32)
+    return out if batched else out[0]

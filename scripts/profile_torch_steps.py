@@ -1,6 +1,6 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
-    python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain]
+    python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (96 members x 512^2 x 12 leads), once
@@ -14,6 +14,11 @@ per-kernel table goes to ``--out`` (default
 ``build/profile_torch_steps.json``).  ``--no-chain`` turns the fused
 match-rim-warp chain off, so that the loop runs K3, K4 and K2 as separate
 kernels: the path the chain replaced, for a comparison in one call.
+``--shapes`` profiles one more run with the operators' input shapes
+recorded (kept apart, so that its host overhead leaves the idle share
+alone) and adds the device ms of every PyTorch operator that takes the
+LUT build's flattened (members, pixels) field, by operator and shapes:
+the 16 tail compares and sums of each lead read off exactly.
 """
 
 import argparse
@@ -61,6 +66,8 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile_torch_steps.json"))
     ap.add_argument("--no-chain", action="store_true",
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
+    ap.add_argument("--shapes", action="store_true",
+                    help="add the device ms of the operators on the LUT build's field")
     args = ap.parse_args()
     if args.no_chain:
         steps_mod._chain_available = lambda *a: False
@@ -114,6 +121,20 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"card": smi, "chain": not args.no_chain, "kernels": table}, f, indent=1)
+    extra = {}
+    if args.shapes:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof_s:
+            run(101)
+        field = [N_MEMBERS, SIDE * SIDE]
+        extra["device_ms_on_lut_field_by_op"] = sorted(
+            ({"op": e.key, "shapes": e.input_shapes, "count": e.count,
+              "device_ms": e.device_time_total / 1e3}
+             for e in prof_s.key_averages(group_by_input_shape=True)
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.device_time_total > 0 and field in e.input_shapes),
+            key=lambda r: -r["device_ms"],
+        )
     print(json.dumps({
         "card": smi, "torch": torch.__version__, "chain": not args.no_chain,
         "shape": [N_MEMBERS, N_LEADS, SIDE, SIDE],
@@ -126,6 +147,7 @@ def main():
         "device_idle_share": 1.0 - busy_us / 1e6 / wall if kernels else "not measured",
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
         "top_kernels": table[:12],
+        **extra,
     }), flush=True)
 
 

@@ -1,5 +1,6 @@
 """The hand-written kernels of the PyTorch port on the card (K1-K4, the
-two stages of the fused chain, the hierarchical and flat PWL maps),
+two stages of the fused chain, the hierarchical and flat PWL maps, the
+CDF counts),
 against their plain PyTorch versions on the same CUDA inputs, at shapes
 that the main path never gives them (grids that are not multiples of 8 or
 32, one pixel, a rim radius wider than the grid or than a 48 KB block,
@@ -12,7 +13,8 @@ Every test needs a CUDA card and skips without one.  On the card:
 
 Tolerances: 1e-5 x span for K1-K3, the chain's resamples and the PWL
 maps (one or two f32 lerps, or the same sum in the same order), 1e-6 for
-the rims (small integers held in floats).
+the rims (small integers held in floats), exact for the CDF counts
+(integers).
 """
 
 import numpy as np
@@ -153,6 +155,35 @@ def test_pwl_flat(dev, N):
     _close(out, ref, 1e-5 * float(ref.abs().max()))
 
 
+@pytest.mark.parametrize("N", [1, 1000, 512 * 512])
+@pytest.mark.parametrize("B", [1, 96])
+def test_cdf_counts(dev, B, N):
+    """Exact counts, bit-equal to the plain version, with unsorted edges, a
+    NaN edge, a -inf edge, an edge tied with pixels and a NaN pixel.  Two
+    launches in a row: the second gets the first's freed count buffer from
+    the allocator, so counts left in it would show."""
+    gen = torch.Generator(device=dev).manual_seed(B * 7 + N)
+    x = torch.round(torch.randn((B, N), generator=gen, device=dev) * 4.0) / 4.0
+    edges = torch.randn((B, 128), generator=gen, device=dev) * 1.5
+    edges[:, 0] = float("nan")
+    edges[:, 1] = float("-inf")
+    edges[:, 2] = x[:, 0]
+    x[:, -1] = float("nan")
+    ref = pallas_histmatch._cdf_counts_plain(x, edges)
+    before = _kernels.LAUNCHES["cdf_counts"]
+    first = pallas_histmatch.cdf_counts(x, edges)
+    assert _kernels.LAUNCHES["cdf_counts"] == before + 1
+    second = pallas_histmatch.cdf_counts(x, edges)
+    assert _kernels.LAUNCHES["cdf_counts"] == before + 2
+    torch.cuda.synchronize()
+    assert first.dtype == torch.float32 and first.shape == (B, 128)
+    assert torch.equal(first, ref) and torch.equal(second, ref)
+    assert bool((ref[:, 0] == 0).all()) and bool((ref[:, 1] == N - 1).all())
+    # the JAX function's form: one field of any shape, edges (128,)
+    one = pallas_histmatch.cdf_counts(x[0].reshape(1, N), edges[0])
+    assert torch.equal(one, ref[0])
+
+
 @pytest.mark.parametrize(
     "shape,D,kr,r,do_rim",
     [
@@ -256,3 +287,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
             f.reshape(2, -1), q[:, None].expand(2, 16), T, q, q, q)
     with pytest.raises(ValueError):
         pallas_histmatch.pwl_apply(f.reshape(2, -1), T.reshape(2, -1)[:, :100], T, q)
+    x, edges = torch.zeros((2, 256), device=dev), torch.zeros((2, 128), device=dev)
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x, edges.cpu())
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(torch.zeros((256, 2), device=dev).t(), edges)
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x.double(), edges)
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x, edges[:, :64])
