@@ -15,10 +15,17 @@ Phases, each printing JSON lines:
    PWL maps, the CDF counts) at the shapes its path gives it, held against
    its plain PyTorch version on the same CUDA inputs, with its time, the
    plain version's, a library yardstick where PyTorch calls come close,
-   and its bound.  The chain and the CDF counts run on the inputs of path
-   A's last lead, recorded from one forecast with each lead's share of
-   vertical taps outside stage 1's halo; the chain is timed beside
-   K3 -> K4 -> K2 on those inputs and with a halo of D + 1;
+   and its bound, and each row's registers, static shared memory and
+   spills from ``nvcc``'s ptxas report.  Each kernel and library call is
+   timed as the median of 5 windows of 100 launches replayed from a CUDA
+   graph (device time); each kernel also called eagerly, host included,
+   as ``ms_eager``.  The chain and the CDF counts run on the inputs of
+   path A's last lead, recorded from one forecast with each lead's
+   largest displacements;
+   the chain is timed beside K3 -> K4 -> K2 on those inputs, stage 1
+   also on a LUT that fails its prefix-table check (the exact 15-term
+   fallback), with its shared memory, blocks per SM and matches per
+   output from the kernel's own geometry;
 4. parity: the deterministic STEPS loop at 256^2 through the chain on the
    card against the plain chain on the CPU, same statics;
 5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
@@ -41,6 +48,8 @@ and the script exits non-zero without the ``ok`` line.
 
 import json
 import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -112,18 +121,81 @@ BENCH_KWARGS = dict(
 )
 
 
-def cuda_ms(fn, reps=20):
-    """Mean device time of ``fn`` in ms (CUDA events, after a warm-up)."""
+def cuda_ms(fn, reps=20, windows=1):
+    """Device time of ``fn`` in ms (CUDA events, after a warm-up): the mean
+    over ``reps`` launches, the median of ``windows`` such windows."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times)
+
+
+def steady_ms(fn, reps=100, windows=5):
+    """Device time of one call of ``fn`` in ms without the host's share:
+    ``reps`` calls captured in one CUDA graph, the graph replayed in
+    ``windows`` windows (CUDA events), the median.  A short launch called
+    eagerly waits on the Python wrapper (tens of microseconds), so
+    :func:`cuda_ms` times the host there, not the kernel."""
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def eager_ms(fn):
+    """:func:`cuda_ms` over 5 windows of 100 eager calls, the host's share
+    included: what the forecast loop pays a call."""
+    return cuda_ms(fn, reps=100, windows=5)
+
+
+def ptxas_report(log_path):
+    """Each kernel's registers, static shared memory and spills from the
+    ``-Xptxas -v`` report beside the library, by mangled name."""
+    out, name = {}, None
+    for line in open(log_path).read().splitlines():
+        hit = re.search(r"Compiling entry function '(\w+)'", line)
+        if hit:
+            name = hit.group(1)
+            out[name] = {"kernel": name}
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if hit and name:
+            out[name].update(spill_stores=int(hit.group(1)), spill_loads=int(hit.group(2)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(hit.group(1)),
+                             smem_static=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def phase_device():
@@ -142,18 +214,26 @@ def phase_device():
 
 
 def phase_build():
+    """Build and load the kernels; returns the ptxas report by kernel."""
     t0 = time.time()
     path = _kernels.build()
     _kernels.library()
     secs = time.time() - t0
+    report = ptxas_report(path.with_suffix(".log"))
+    spills = {k: v for k, v in report.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
     emit({"phase": "build", "seconds": round(secs, 3), "library": os.path.relpath(path, ROOT),
-          "ptxas_report": os.path.relpath(path.with_suffix(".log"), ROOT)})
+          "ptxas_report": os.path.relpath(path.with_suffix(".log"), ROOT),
+          "kernels": len(report), "spilling": sorted(spills)})
+    return report
 
 
-def _record(name, source, replaces, counter, out, ref, tol, kernel_ms, plain_ms,
+def _record(name, source, replaces, counter, out, ref, tol, kernel, plain_ms,
             library_ms, library_call, bytes_moved, flops, peaks, path, **extra):
     """One kernel's check and numbers; raises when it disagrees.  ``out``,
-    ``ref`` and ``tol`` may be tuples, one entry per output."""
+    ``ref`` and ``tol`` may be tuples, one entry per output.  ``kernel``
+    is the call timed: ``ms`` from a CUDA graph (:func:`steady_ms`),
+    ``ms_eager`` called eagerly (:func:`eager_ms`)."""
     torch.cuda.synchronize()
     if not isinstance(out, tuple):
         out, ref, tol = (out,), (ref,), (tol,)
@@ -172,7 +252,8 @@ def _record(name, source, replaces, counter, out, ref, tol, kernel_ms, plain_ms,
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "counter": counter, "path": path, "launches": None, "max_abs_err": err,
         "tol": list(tol) if len(tol) > 1 else tol[0],
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "ms": steady_ms(kernel), "ms_eager": eager_ms(kernel), "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms, "library_call": library_call,
         "bytes": bytes_moved, "flops": flops, **extra,
@@ -181,10 +262,11 @@ def _record(name, source, replaces, counter, out, ref, tol, kernel_ms, plain_ms,
     return rec
 
 
-def _grid_sample_ms(field, disp):
+def _grid_sample_ms(field, disp, timer=None):
     """F.grid_sample (bilinear, zeros padding) of (B, 1, m, n) fields at
-    displaced positions: a yardstick close to K1/K2, not the same function
-    (no displacement clip, joint 2-D sampling, other edge rule)."""
+    displaced positions, timed by ``timer``: a yardstick close to K1/K2,
+    not the same function (no displacement clip, joint 2-D sampling, other
+    edge rule)."""
     B, m, n = field.shape
     yy = torch.linspace(-1, 1, m, device=field.device)[:, None].expand(m, n)
     xx = torch.linspace(-1, 1, n, device=field.device)[None, :].expand(m, n)
@@ -192,30 +274,15 @@ def _grid_sample_ms(field, disp):
         [xx + disp[:, 0] * (2.0 / (n - 1)), yy + disp[:, 1] * (2.0 / (m - 1))], dim=-1
     )
     f4 = field[:, None]
-    return cuda_ms(lambda: F.grid_sample(f4, grid, mode="bilinear", align_corners=True))
-
-
-def _halo_miss_share(dy, D, halo):
-    """Share of stage 1's vertical taps (k0 and k1 of every pixel) that
-    fall outside the matched rows of its 64-row tile, as chain.cu computes
-    the taps: these are matched a second time from the field."""
-    m = dy.shape[-2]
-    i = torch.arange(m, device=dy.device, dtype=torch.float32)[:, None]
-    k = torch.minimum(torch.maximum(torch.floor(i + dy), i - D), i + D)
-    i0 = torch.div(i, 64, rounding_mode="floor") * 64
-    ra, rb = (i0 - halo).clamp(min=0), (i0 + 64 + halo).clamp(max=m)
-    miss = 0.0
-    for kk in (k.clamp(0, m - 1), (k + 1).clamp(0, m - 1)):
-        miss += float(((kk < ra) | (kk >= rb)).float().mean()) / 2
-    return miss
+    return (timer or steady_ms)(
+        lambda: F.grid_sample(f4, grid, mode="bilinear", align_corners=True))
 
 
 def _capture_chain_leads():
     """Path A once, outside any counted run, recording each lead's chain
-    call: the largest displacements, the share of vertical taps outside
-    the default halo, and the last lead's inputs (the largest
-    displacements of the forecast) with the edges of the PWL LUT build
-    that made its LUT."""
+    call: the largest displacements, and the last lead's inputs (the
+    largest displacements of the forecast) with the edges of the PWL LUT
+    build that made its LUT."""
     precip_db, velocity = bench_inputs(SIDE)
     dev = torch.device("cuda")
     leads, last, build = [], {}, {}
@@ -229,11 +296,9 @@ def _capture_chain_leads():
 
     def recording(field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r,
                   do_rim=True):
-        halo = pallas_chain.default_halo(kr, r)
         leads.append({
             "max_abs_dx": float(disp_t[:, 0].abs().max()),
             "max_abs_dy": float(dy.abs().max()),
-            "halo_miss_share": _halo_miss_share(dy, pallas_warp._round8(D), halo),
         })
         last.update(field=field, e8=e8, T=T, q0=q0, zval=zval, ztrg=ztrg, thr=thr,
                     dy=dy, disp_t=disp_t, cval=cval, D=D, kr=kr, r=r, do_rim=do_rim,
@@ -255,13 +320,19 @@ def _capture_chain_leads():
     return leads, last
 
 
-def phase_kernels(peaks, leads, captured):
+def phase_kernels(peaks, leads, captured, report):
     """Each of the eleven rows against its plain version at the shapes its
     path gives it: K1 on both axes, K4 from a mask and the chain's two
     stages at path A's, K2, K3 and K4 from a field at path B's (K2 and K4
     also at path C's, as the row's ``at_C``), the hierarchical map at path
     C's, the flat map at path D's, the CDF counts at path E's.  ``leads``
-    and ``captured`` are :func:`_capture_chain_leads`' record of path A."""
+    and ``captured`` are :func:`_capture_chain_leads`' record of path A,
+    ``report`` :func:`ptxas_report`'s."""
+
+    def ptxas(*names):
+        """The report's entries of the kernels a row launches."""
+        return [v for k, v in sorted(report.items()) if any(n in k for n in names)]
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     recs = []
@@ -311,11 +382,14 @@ def phase_kernels(peaks, leads, captured):
             f"K1_resample_axis{axis}", "pysteps_tpu_torch/csrc/resample.cu",
             "pysteps_tpu/ops/pallas_warp.py:82", f"resample_axis{axis}", out, ref,
             1e-5 * span,
-            cuda_ms(lambda: pallas_warp.axis_resample(fields, idx0, frac, 12, axis)),
+            lambda: pallas_warp.axis_resample(fields, idx0, frac, 12, axis),
             cuda_ms(lambda: pallas_warp._axis_resample(fields, idx0, frac, 12, axis), 5),
             _grid_sample_ms(fields, disp.repeat_interleave(2, dim=0)),
             "F.grid_sample bilinear (close, not the same function)",
             nb, 4 * fields.numel(), peaks, "A", shape=list(fields.shape),
+            ptxas=ptxas("pst_resample_kernelILi%d" % axis),
+            library_ms_eager=_grid_sample_ms(
+                fields, disp.repeat_interleave(2, dim=0), eager_ms),
         ))
 
     # Operations are the least a pixel needs for the function, not what a
@@ -342,23 +416,23 @@ def phase_kernels(peaks, leads, captured):
             pallas_warp.warp_fused(field, dy, disp_t, 48, nan),
             pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan),
             1e-5 * float(field.max() - field.min()),
-            cuda_ms(lambda: pallas_warp.warp_fused(field, dy, disp_t, 48, nan)),
+            lambda: pallas_warp.warp_fused(field, dy, disp_t, 48, nan),
             cuda_ms(lambda: pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan), 5),
             _grid_sample_ms(field, disp),
             "F.grid_sample bilinear (close, not the same function)",
             4 * 5 * field.numel(), 12 * field.numel(), peaks, path,
-            shape=list(field.shape),
+            shape=list(field.shape), ptxas=ptxas("pst_warp_"),
         )
         k4 = _record(
             "K4_rim_from_field", "pysteps_tpu_torch/csrc/rim.cu",
             "pysteps_tpu/ops/pallas_dilate.py:86", "rim_from_field",
             pallas_dilate.dilated_rim_from_field(field, -10.0, 2, 10),
             pallas_dilate._rim_plain(field, -10.0, 2, 10), 1e-6,
-            cuda_ms(lambda: pallas_dilate.dilated_rim_from_field(field, -10.0, 2, 10)),
+            lambda: pallas_dilate.dilated_rim_from_field(field, -10.0, 2, 10),
             cuda_ms(lambda: pallas_dilate._rim_plain(field, -10.0, 2, 10), 3),
             None, "none: no PyTorch call computes a bounded L1 distance transform",
             4 * 2 * field.numel(), rim_ops * field.numel(), peaks, path,
-            shape=list(field.shape),
+            shape=list(field.shape), ptxas=ptxas("pst_rim_"),
         )
         return k2, k4
 
@@ -375,11 +449,12 @@ def phase_kernels(peaks, leads, captured):
         "pysteps_tpu/ops/pallas_histmatch.py:199", "pwl_gather",
         pallas_histmatch.pwl_apply_gather(*k3_args), ref,
         1e-5 * float(ref.abs().max()),
-        cuda_ms(lambda: pallas_histmatch.pwl_apply_gather(*k3_args)),
+        lambda: pallas_histmatch.pwl_apply_gather(*k3_args),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_gather_plain(*k3_args), 3),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * xb.numel() + e8_b.numel() + T_b.numel() + 3 * E_b),
         pwl_ops * xb.numel(), peaks, "B", shape=list(xb.shape),
+        ptxas=ptxas("pst_pwl_gather_kernel"),
     )
     del xb, k3_args, ref
 
@@ -394,11 +469,12 @@ def phase_kernels(peaks, leads, captured):
         "pysteps_tpu/ops/pallas_histmatch.py:284", "pwl_hier",
         pallas_histmatch.pwl_apply_hier(*hier_args), ref,
         1e-5 * float(ref.abs().max()),
-        cuda_ms(lambda: pallas_histmatch.pwl_apply_hier(*hier_args)),
+        lambda: pallas_histmatch.pwl_apply_hier(*hier_args),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_hier_plain(*hier_args), 3),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * xc.numel() + e16.numel() + M3.numel() + 3 * E_c),
         pwl_ops * xc.numel(), peaks, "C", shape=list(xc.shape),
+        ptxas=ptxas("pst_pwl_hier_kernel"),
     )
     k2_c, k4_c = k2_k4(E_c, side_c, xc, "C")
     del xc, hier_args, ref
@@ -415,10 +491,11 @@ def phase_kernels(peaks, leads, captured):
         "pysteps_tpu/ops/pallas_dilate.py:115", "rim_from_mask",
         pallas_dilate.dilated_rim(mask, 2, 10), pallas_dilate._rim_plain(mask, 0.5, 2, 10),
         1e-6,
-        cuda_ms(lambda: pallas_dilate.dilated_rim(mask, 2, 10)),
+        lambda: pallas_dilate.dilated_rim(mask, 2, 10),
         cuda_ms(lambda: pallas_dilate._rim_plain(mask, 0.5, 2, 10), 3),
         None, "none: no PyTorch call computes a bounded L1 distance transform",
         4 * 2 * mask.numel(), rim_ops * mask.numel(), peaks, "A", shape=list(mask.shape),
+        ptxas=ptxas("pst_rim_"),
     ))
 
     # the flat map on path D's shapes: 96 x 512^2
@@ -430,12 +507,13 @@ def phase_kernels(peaks, leads, captured):
         "pysteps_tpu/ops/pallas_histmatch.py:258", "pwl_flat",
         pallas_histmatch.pwl_apply(x, edges_f, w, q0), ref,
         1e-5 * float(ref.abs().max()),
-        cuda_ms(lambda: pallas_histmatch.pwl_apply(x, edges_f, w, q0)),
+        lambda: pallas_histmatch.pwl_apply(x, edges_f, w, q0),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0), 2),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * x.numel() + edges_f.numel() + w.numel() + E),
         # no dry override in this map
         (search_ops + 2) * x.numel(), peaks, "D", shape=list(x.shape),
+        ptxas=ptxas("pst_pwl_flat_kernel"),
     ))
     del x, ref
 
@@ -452,9 +530,9 @@ def phase_kernels(peaks, leads, captured):
         "cdf_counts", "pysteps_tpu_torch/csrc/cdf.cu",
         "pysteps_tpu/ops/pallas_histmatch.py:236", "cdf_counts",
         counts, pallas_histmatch._cdf_counts_plain(xe, edges_e), 0.0,
-        cuda_ms(lambda: pallas_histmatch.cdf_counts(xe, edges_e)),
+        lambda: pallas_histmatch.cdf_counts(xe, edges_e),
         cuda_ms(lambda: pallas_histmatch._cdf_counts_plain(xe, edges_e), 2),
-        cuda_ms(sort_search),
+        steady_ms(sort_search),
         "torch.sort + torch.searchsorted (two calls; the same counts only for "
         "sorted edges without NaN)",
         # the field read once, the edges read, the counts written
@@ -463,6 +541,7 @@ def phase_kernels(peaks, leads, captured):
         # edges and the suffix sum of the 129 bins are negligible beside it
         (search_ops + 1) * xe.numel(), peaks, "E", shape=list(xe.shape),
         library_same_counts=torch.equal(sort_search().to(torch.float32), counts),
+        ptxas=ptxas("pst_cdf_counts_kernel"),
     ))
 
     # the chain on path A's own inputs: its last lead, recorded from a
@@ -471,11 +550,15 @@ def phase_kernels(peaks, leads, captured):
     field, e8, T, dy, disp_t = a["field"], a["e8"], a["T"], a["dy"], a["disp_t"]
     q0, zval, ztrg, thr, cval = a["q0"], a["zval"], a["ztrg"], a["thr"], a["cval"]
     D, kr, r, do_rim = pallas_warp._round8(a["D"]), a["kr"], a["r"], a["do_rim"]
-    B = field.shape[0]
+    B, m, n = field.shape
     ztrg_b = ztrg.expand(B)
     v_args = (field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim)
-    # the halo the TPU design implies: every tap of a displacement <= D
-    halo_d1 = max(D + 1, kr + r)
+    if not bool(pallas_histmatch._pwl_prefix_ok(T).all()):
+        raise AssertionError("chain stage 1: path A's LUTs fail the prefix-table check")
+    # the same LUTs with one fine edge of each member's top block made NaN:
+    # the check fails, so stage 1 takes K3's 15-term sum
+    T_slow = T.clone()
+    T_slow[:, 7, 14] = float("nan")
 
     def unfused():
         """K3 -> K4 -> K2, the path the chain replaces, on the same inputs."""
@@ -484,48 +567,57 @@ def phase_kernels(peaks, leads, captured):
         pallas_dilate.dilated_rim_from_field(matched, thr, kr, r)
         return pallas_warp.warp_fused(matched, dy, disp_t, D, cval)
 
+    def plain_v(lut):
+        return pallas_chain._chain_v_plain(
+            field, e8, lut, q0, zval, ztrg_b, thr, dy, D, kr, r, do_rim)
+
     C, rim = pallas_chain.chain_match_vert_rim(*v_args)
-    C_ref, rim_ref = pallas_chain._chain_v_plain(
-        field, e8, T, q0, zval, ztrg_b, thr, dy, D, kr, r, do_rim)
-    C_d1, rim_d1 = pallas_chain.chain_match_vert_rim(*v_args, halo=halo_d1)
-    if not (torch.equal(C_d1, C) and torch.equal(rim_d1, rim)):
-        raise AssertionError("chain stage 1: the halo changed the result")
+    C_ref, rim_ref = plain_v(T)
+    slow_args = v_args[:2] + (T_slow,) + v_args[3:]
+    C_s, rim_s = pallas_chain.chain_match_vert_rim(*slow_args)
+    C_sref, rim_sref = plain_v(T_slow)
+    torch.cuda.synchronize()
+    if not (torch.equal(torch.isnan(C_s), torch.isnan(C_sref))
+            and torch.equal(torch.nan_to_num(C_s), torch.nan_to_num(C_sref))
+            and float((rim_s - rim_sref).abs().max()) <= 1e-6):
+        raise AssertionError("chain stage 1: the 15-term fallback differs from the plain version")
     timing = {
-        "chain_ms": cuda_ms(lambda: pallas_chain.match_warp_rim(
+        "chain_ms": steady_ms(lambda: pallas_chain.match_warp_rim(
             field, e8, T, q0, zval, ztrg, thr, dy, disp_t, cval, D, kr, r, do_rim)),
-        "unfused_ms": cuda_ms(unfused),
+        "unfused_ms": steady_ms(unfused),
     }
-    span = float(C_ref.max() - C_ref.min())
     plane = 4 * field.numel()
     recs.append(_record(
         "chain_match_vert_rim", "pysteps_tpu_torch/csrc/chain.cu",
         "pysteps_tpu/ops/pallas_chain.py:277", "chain_match_vert_rim", (C, rim),
-        (C_ref, rim_ref), (1e-5 * span, 1e-6),
-        cuda_ms(lambda: pallas_chain.chain_match_vert_rim(*v_args)),
-        cuda_ms(lambda: pallas_chain._chain_v_plain(
-            field, e8, T, q0, zval, ztrg_b, thr, dy, D, kr, r, do_rim), 3),
+        # C equal under == (NaN where NaN), the rim within 1e-6
+        (C_ref, rim_ref), (0.0, 1e-6),
+        lambda: pallas_chain.chain_match_vert_rim(*v_args),
+        cuda_ms(lambda: plain_v(T), 3),
         None, "none: no PyTorch call computes a PWL map, a resample and a rim",
         # field and dy read, C and the rim written; the LUTs
         4 * plane + 4 * (e8.numel() + T.numel() + 3 * B),
         # the match, one lerp, the rim's two min passes
         (pwl_ops + 6 + rim_ops) * field.numel(), peaks, "A", shape=list(field.shape),
-        halo=pallas_chain.default_halo(kr, r), halo_D1=halo_d1,
-        ms_halo_D1=cuda_ms(lambda: pallas_chain.chain_match_vert_rim(*v_args, halo=halo_d1)),
-        leads=leads, **timing,
+        ms_slow_lut=steady_ms(lambda: pallas_chain.chain_match_vert_rim(*slow_args)),
+        stage1=pallas_chain.stage1_info(m, n, D, kr, r, do_rim),
+        ptxas=ptxas("pst_chain_v_kernel"), leads=leads, **timing,
     ))
     out = pallas_chain.chain_horiz(C, disp_t, D, cval)
     ref = pallas_warp._warp_h_plain(C, disp_t, D, cval)
+    span = float(C_ref.max() - C_ref.min())
     recs.append(_record(
         "chain_horiz", "pysteps_tpu_torch/csrc/chain.cu",
         "pysteps_tpu/ops/pallas_chain.py:301", "chain_horiz", out, ref, 1e-5 * span,
-        cuda_ms(lambda: pallas_chain.chain_horiz(C, disp_t, D, cval)),
+        lambda: pallas_chain.chain_horiz(C, disp_t, D, cval),
         cuda_ms(lambda: pallas_warp._warp_h_plain(C, disp_t, D, cval), 5),
         _grid_sample_ms(C, disp_t.transpose(-1, -2)),
         "F.grid_sample bilinear (close, not the same function)",
         # C and the two displacement planes read, the output written
         4 * plane,
         # one lerp and the in-domain test
-        12 * field.numel(), peaks, "A", shape=list(field.shape), **timing,
+        12 * field.numel(), peaks, "A", shape=list(field.shape),
+        ptxas=ptxas("pst_chain_h_kernel"), **timing,
     ))
     return recs
 
@@ -739,9 +831,9 @@ def phase_paths(name, smi, captured):
 def main():
     name, smi = phase_device()
     peaks = card_peaks(name)
-    phase_build()
+    report = phase_build()
     leads, captured = _capture_chain_leads()
-    recs = phase_kernels(peaks, leads, captured)
+    recs = phase_kernels(peaks, leads, captured, report)
     phase_parity()
     by_path = phase_paths(name, smi, captured)
     for rec in recs:
@@ -752,7 +844,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
-             "unfused_ms", "halo", "halo_D1", "ms_halo_D1", "library_same_counts")
+             "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "stage1",
+             "library_same_counts", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})

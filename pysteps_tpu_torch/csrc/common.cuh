@@ -13,6 +13,7 @@
 #define PST_THREADS 256
 // grid.y / grid.z limit: batch axes longer than this launch in chunks
 #define PST_MAX_GRID_YZ 65535LL
+#define PST_MAX_DEVICES 64
 
 // Grid for a grid-stride loop over `total` elements: enough blocks to fill
 // the card many times over, capped so huge batches still launch.
@@ -22,6 +23,30 @@ static inline unsigned int pst_blocks(long long total, int per_thread = 1) {
   if (b < 1) b = 1;
   if (b > 132LL * 64) b = 132LL * 64;
   return (unsigned int)b;
+}
+
+// Raise a kernel's dynamic shared-memory limit on the current card to
+// `smem` when that is above the 48 KB default.  `granted` (one array per
+// kernel) keeps the largest size set on each card, so the attribute is
+// set once.  Above the card's 227 KB the attribute is refused: the error
+// is returned and cleared, so that the next launch's check does not see it.
+template <typename Kernel>
+static cudaError_t pst_allow_smem(Kernel kernel, long long smem,
+                                  long long* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= PST_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= granted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(smem < (1LL << 30) ? smem : (1LL << 30)));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  granted[dev] = smem;
+  return cudaSuccess;
 }
 
 __device__ __forceinline__ int pst_clamp(int v, int lo, int hi) {

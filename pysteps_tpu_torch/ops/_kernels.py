@@ -42,6 +42,7 @@ LAUNCHES = dict.fromkeys(
 )
 
 _vp, _ll, _i, _f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+_pll, _pi = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # field, idx0, frac, out, batch, rep, m, n, D, axis, stream
     "pst_resample": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i, _vp),
@@ -51,8 +52,10 @@ _SIGNATURES = {
     "pst_pwl_gather": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
     # field, thr, scratch, out, batch, m, n, kr, r, stream
     "pst_rim": (_vp, _f, _vp, _vp, _ll, _i, _i, _i, _i, _vp),
-    # field, e8, T, scal, dy, C, mask, batch, m, n, D, kr, r, thr, do_rim, halo, stream
-    "pst_chain_v": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _i, _vp),
+    # field, e8, T, scal, dy, C, mask, batch, m, n, D, kr, r, thr, do_rim, stream
+    "pst_chain_v": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _vp),
+    # m, n, D, kr, r, do_rim -> smem bytes, ring rows, blocks per SM, matches
+    "pst_chain_v_info": (_i,) * 6 + (_pll, _pi, _pi, _pll),
     # C, disp_t, out, batch, m, n, D, cval, stream
     "pst_chain_h": (_vp, _vp, _vp, _ll, _i, _i, _i, _f, _vp),
     # x, e16, M3, scal, out, batch, N, stream

@@ -4,17 +4,24 @@ plain PyTorch version (counterpart of ``pysteps_tpu/ops/pallas_chain.py``).
 
 Per member and lead the unfused path runs three field-sized kernels on
 the matched field: K3 (match), K4 (rim) and K2 (warp).  The chain
-(``csrc/chain.cu``) matches each tile into shared memory once and feeds
-both the rim and the vertical resample from there (stage 1), then runs
-the horizontal resample with the out-of-domain fill (stage 2): the matched
-field never reaches device memory.  The result equals the composition
-K3 -> K2 (masked) and K3 -> K4, which is what the plain version computes.
+(``csrc/chain.cu``) walks full-height strips of each member, matches every
+pixel of a strip (and of the rim's columns beside it) once into a ring of
+shared-memory rows, and feeds both the rim and the vertical resample from
+there (stage 1), then runs the horizontal resample with the out-of-domain
+fill (stage 2): the matched field never reaches device memory.  Stage 1
+evaluates the PWL map from per-member prefix tables
+(``pallas_histmatch._pwl_apply_prefix_plain`` is its plain model), exact
+for the sorted LUTs that ``pack_gather_lut`` gives and falling back to
+K3's 15-term sum for any other.  The result equals the composition K3 ->
+K2 (masked) and K3 -> K4, which is what the plain version computes.
 
 Also here, as in the JAX package: the hierarchical LUT layout
 (:func:`pack_hier_lut`, ``G`` blocks of ``L`` knots) that
 ``pallas_histmatch.pwl_apply_hier`` evaluates, and the bf16 split by bit
 masking (:func:`_bf16_mask`).
 """
+
+import ctypes
 
 import torch
 
@@ -85,25 +92,23 @@ def _chain_v_plain(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim):
     return C, rim
 
 
-def default_halo(kr, r):
-    """Stage 1's default halo: max(kr + r, 8) matched rows above and below
-    each 64-row tile, enough for the rim; a vertical tap beyond it is
-    matched again from the field."""
-    return max(kr + r, 8)
-
-
 def chain_match_vert_rim(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r,
                          do_rim=True, halo=None):
     """Stage 1 of the chain (replaces ``_k1_kernel``) on a (B, m, n)
     field: the PWL match, the vertical resample ``C`` of the matched field
-    and its rim (zeros when ``do_rim`` is False).  ``halo`` is the number of
-    matched rows the kernel keeps above and below a tile (default
-    :func:`default_halo`; at least ``kr + r`` with the rim); it changes the
-    kernel's work, not its result.  Returns ``(C, rim)``."""
+    and its rim (zeros when ``do_rim`` is False).  Returns ``(C, rim)``.
+
+    ``halo``, the matched rows kept above and below a tile in the first
+    design, is only checked now: with the rim it must hold ``kr + r``
+    rows, as before.  The kernel keeps every row a tap can reach (D above
+    to D + 1 below) and does not read it, so it changes nothing.  On the
+    card the ring of 2D + 65 rows (with ``kr + r <= D + 1``) must fit in
+    shared memory, about D <= 320 for fields taller than the ring, and
+    ``kr + r`` be at most 254; otherwise the launch is refused and this
+    raises."""
     D = _round8(D)
     B, m, n = field.shape
-    halo = default_halo(kr, r) if halo is None else int(halo)
-    if halo < (kr + r if do_rim else 0):
+    if halo is not None and int(halo) < (kr + r if do_rim else 0):
         raise ValueError("match_warp_rim: the halo must hold the rim's kr + r rows")
     scal = _scalars(B, q0, zval, ztrg)
     if not field.is_cuda:
@@ -121,10 +126,27 @@ def chain_match_vert_rim(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r,
         "pst_chain_v", field.device, field.data_ptr(), e8.data_ptr(),
         T.data_ptr(), scal.data_ptr(), dy.data_ptr(), C.data_ptr(),
         rim.data_ptr(), B, m, n, D, int(kr), int(r), float(thr),
-        int(bool(do_rim)), halo,
+        int(bool(do_rim)),
     )
     _kernels.LAUNCHES["chain_match_vert_rim"] += 1
     return C, rim
+
+
+def stage1_info(m, n, D, kr, r, do_rim=True, device=None):
+    """What stage 1 asks of the card at these arguments (``D`` as the
+    caller gives it): ``smem_bytes`` of dynamic shared memory, ``ring_rows``,
+    ``blocks_per_sm`` and ``matches_per_output``, the PWL evaluations per
+    output pixel, from the kernel's own geometry.  Needs the card."""
+    info = (ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = _kernels.library().pst_chain_v_info(
+            int(m), int(n), _round8(D), int(kr), int(r), int(bool(do_rim)),
+            *(ctypes.byref(v) for v in info))
+    if err != 0:
+        raise RuntimeError(f"pst_chain_v_info: CUDA error {err}")
+    return {"smem_bytes": info[0].value, "ring_rows": info[1].value,
+            "blocks_per_sm": info[2].value,
+            "matches_per_output": info[3].value / (m * n)}
 
 
 def chain_horiz(C, disp_t, D, cval):

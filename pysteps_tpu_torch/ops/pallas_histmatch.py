@@ -195,6 +195,61 @@ def _pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg):
     return torch.where(x == zval[:, None], ztrg[:, None].expand_as(out), out)
 
 
+def _pwl_prefix_ok(T):
+    """(B,) bool: the members whose gather LUT ``T`` (B, 8, 48) chain
+    stage 1 evaluates from prefix tables: every row's 15 fine edges
+    nondecreasing and free of NaN, every d0/d1 term finite.  Then the
+    terms a pixel selects are a prefix and the terms after it add +-0."""
+    edges = T[:, :, :15]
+    ordered = (edges[:, :, 1:] >= edges[:, :, :-1]).all(dim=2).all(dim=1)
+    return ordered & torch.isfinite(T[:, :, 15:45]).all(dim=2).all(dim=1)
+
+
+def _pwl_prefix_tables(T):
+    """The running sums (B, 8, 16) of each row's d0 and d1 terms after t =
+    0..15 of them, from the row's prefix, added left to right as K3 adds
+    them."""
+    acc0, acc1 = [T[:, :, 45]], [T[:, :, 46]]
+    for j in range(15):
+        acc0.append(acc0[-1] + T[:, :, 15 + j] * 1.0)
+        acc1.append(acc1[-1] + T[:, :, 30 + j] * 1.0)
+    return torch.stack(acc0, dim=2), torch.stack(acc1, dim=2)
+
+
+def _pwl_prefix_acc(x, e8, T):
+    """The two sums of chain stage 1's PWL evaluation on (B, N): the block
+    index, a 4-step search for t = #{j : x >= fine edge j} among the
+    block's sorted fine edges, and the two running sums after t terms."""
+    B = x.shape[0]
+    idx = torch.zeros(x.shape, dtype=torch.long, device=x.device)
+    for g in range(1, 8):
+        idx += (x >= e8[:, g : g + 1]).long()
+    edges = T[:, :, :15].reshape(B, -1)
+    t = torch.zeros_like(idx)
+    for step in (8, 4, 2, 1):
+        e = torch.gather(edges, 1, idx * 15 + t + step - 1)
+        t += step * (x >= e).long()
+    P0, P1 = _pwl_prefix_tables(T)
+    return (torch.gather(P0.reshape(B, -1), 1, idx * 16 + t),
+            torch.gather(P1.reshape(B, -1), 1, idx * 16 + t))
+
+
+def _pwl_apply_prefix_plain(x, e8, T, q0, zval, ztrg):
+    """Plain model of chain stage 1's PWL evaluation on (B, N) (the sums
+    of :func:`_pwl_prefix_acc`, then K3's last two operations).  Equal
+    under == to :func:`_pwl_apply_gather_plain` for the members that pass
+    :func:`_pwl_prefix_ok`; the others take that 15-term sum, as the kernel
+    does."""
+    acc0, acc1 = _pwl_prefix_acc(x, e8, T)
+    out = q0[:, None] + acc0 + x * acc1
+    out = torch.where(x == zval[:, None], ztrg[:, None].expand_as(out), out)
+    ok = _pwl_prefix_ok(T)
+    if bool(ok.all()):
+        return out
+    slow = _pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg)
+    return torch.where(ok[:, None], out, slow)
+
+
 def pwl_apply_gather(x, e8, T, q0, zval, ztrg):
     """K3 (replaces ``pwl_apply_gather``): the block-gathered PWL map of
     ``x`` (B, N) with the dry override (``x == zval`` -> ``ztrg``); ``e8``

@@ -11,10 +11,11 @@ Every test needs a CUDA card and skips without one.  On the card:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Tolerances: 1e-5 x span for K1-K3, the chain's resamples and the PWL
-maps (one or two f32 lerps, or the same sum in the same order), 1e-6 for
-the rims (small integers held in floats), exact for the CDF counts
-(integers).
+Tolerances: 1e-5 x span for K1-K3, chain stage 2 and the PWL maps (one
+or two f32 lerps, or the same sum in the same order), none for K1 and
+chain stage 1's C (the same operations in the same order: equal under ==),
+1e-6 for the rims (small integers held in floats), exact for the CDF
+counts (integers).
 """
 
 import numpy as np
@@ -54,25 +55,53 @@ def _disp(gen, dev, B, m, n, amp):
     )
 
 
-@pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("rep", [1, 2])
-@pytest.mark.parametrize("D", [5, 13])
-def test_k1_resample(dev, axis, rep, D):
-    """|disp| reaches 20 > D: pins the clip to [p - D, p + D], then the
-    edges; ``rep`` fields share one index plane."""
-    gen = torch.Generator(device=dev).manual_seed(axis + 10 * rep + D)
-    B, m, n = 3, 37, 53
+def _k1_inputs(gen, dev, B, rep, m, n, axis, amp=20.0):
+    """Fields (B * rep, m, n) and their shared (B, m, n) index planes."""
     field = torch.randn((B * rep, m, n), generator=gen, device=dev)
     pos = torch.arange((m, n)[axis], device=dev, dtype=torch.float32)
     pos = pos[:, None] if axis == 0 else pos[None, :]
-    c = pos + _disp(gen, dev, B, m, n, 20.0)[:, 1 - axis]
+    c = pos + _disp(gen, dev, B, m, n, amp)[:, 1 - axis]
     idx0 = torch.floor(c).to(torch.int32).contiguous()
     frac = (c - torch.floor(c)).contiguous()
+    return field, idx0, frac
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("rep", [1, 2, 3])
+@pytest.mark.parametrize("D", [5, 13, 300])
+@pytest.mark.parametrize("shape", [(37, 53), (40, 128)])
+def test_k1_resample(dev, axis, rep, D, shape):
+    """|disp| reaches 20 > D: pins the clip to [p - D, p + D], then the
+    edges (D = 300 is wider than the grid: no clip); ``rep`` fields share
+    one index plane.  53 columns take the scalar streams, 128 the 16-byte
+    ones; two launches in a row."""
+    gen = torch.Generator(device=dev).manual_seed(axis + 10 * rep + D + shape[1])
+    m, n = shape
+    field, idx0, frac = _k1_inputs(gen, dev, 3, rep, m, n, axis)
     before = _kernels.LAUNCHES[f"resample_axis{axis}"]
     out = pallas_warp.axis_resample(field, idx0, frac, D, axis)
-    assert _kernels.LAUNCHES[f"resample_axis{axis}"] == before + 1
+    again = pallas_warp.axis_resample(field, idx0, frac, D, axis)
+    assert _kernels.LAUNCHES[f"resample_axis{axis}"] == before + 2
     ref = pallas_warp._axis_resample(field, idx0, frac, D, axis)
-    _close(out, ref, 1e-5 * float(field.max() - field.min()))
+    _close(out, ref, 0.0)
+    _close(again, ref, 0.0)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k1_unaligned_and_many_planes(dev, axis):
+    """Streams that start off a 16-byte boundary take the scalar path; 70000
+    index planes need two grid chunks of 65535."""
+    gen = torch.Generator(device=dev).manual_seed(7 + axis)
+    m, n = 8, 16
+    field, idx0, frac = _k1_inputs(gen, dev, 70000, 1, m, n, axis, amp=5.0)
+    flat = torch.empty(idx0.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(idx0.shape)
+    shifted.copy_(idx0)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    out = pallas_warp.axis_resample(field, shifted, frac, 3, axis)
+    _close(out, pallas_warp._axis_resample(field, idx0, frac, 3, axis), 0.0)
+    out = pallas_warp.axis_resample(field, idx0, frac, 3, axis)
+    _close(out, pallas_warp._axis_resample(field, idx0, frac, 3, axis), 0.0)
 
 
 @pytest.mark.parametrize("masked", [True, False])
@@ -184,25 +213,49 @@ def test_cdf_counts(dev, B, N):
     assert torch.equal(one, ref[0])
 
 
+def _spoil(T):
+    """Make members 0 and 1 fail stage 1's prefix-table check (so take the
+    15-term fallback): a row whose first fine edge lies above its last, a
+    NaN edge."""
+    T = T.clone()
+    T[0, 6, 0] = T[0, 6, 14] + 1.0
+    if T.shape[0] > 1:
+        T[1, 3, 7] = float("nan")
+    return T
+
+
+@pytest.mark.parametrize("lut", ["built", "spoilt"])
 @pytest.mark.parametrize(
     "shape,D,kr,r,do_rim",
     [
         ((3, 37, 53), 13, 2, 10, True),
         ((2, 37, 53), 48, 3, 5, False),
-        ((1, 9, 10), 8, 1, 40, True),  # rim wider than the grid, > 48 KB block
+        ((1, 9, 10), 8, 1, 40, True),  # rim wider than the grid and the strip
         ((2, 384, 768), 48, 2, 10, True),  # 1,179,648 B: just inside the gate
         ((2, 512, 512), 48, 2, 10, True),
+        ((3, 300, 200), 48, 2, 10, True),  # no multiple of the strip or step
+        ((300, 64, 128), 48, 2, 10, True),  # 600 blocks: more than one wave
+        ((2, 700, 64), 0, 2, 10, True),  # taps of a zero bound
+        ((2, 200, 100), 48, 3, 20, True),  # 4 wet words a row over many steps
+        ((1, 150, 70), 16, 5, 40, True),  # a rim beyond 31 columns: the word walk
     ],
 )
-def test_chain_stages(dev, shape, D, kr, r, do_rim):
+def test_chain_stages(dev, shape, D, kr, r, do_rim, lut):
     """Both stages and the whole chain against the plain versions, with
-    displacements beyond D and a different LUT per member."""
+    displacements up to 1.5 D (taps anywhere in stage 1's ring) and a
+    different LUT per member; ``spoilt`` LUTs take stage 1's 15-term
+    fallback on members 0 and 1.  Stage 1's C is equal under ==; each
+    stage launches twice."""
     gen = torch.Generator(device=dev).manual_seed(sum(shape) + D)
     B, m, n = shape
     (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, m * n)
     e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+    assert bool(pallas_histmatch._pwl_prefix_ok(T).all())
+    if lut == "spoilt":
+        T = _spoil(T)
+        assert not bool(pallas_histmatch._pwl_prefix_ok(T)[:2].any())
     field = x.reshape(B, m, n).contiguous()
-    disp = _disp(gen, dev, B, m, n, 1.5 * D)
+    disp = _disp(gen, dev, B, m, n, 1.5 * max(D, 2))
     dy = disp[:, 1].contiguous()
     disp_t = disp.transpose(-1, -2).contiguous()
     nan = float("nan")
@@ -216,7 +269,7 @@ def test_chain_stages(dev, shape, D, kr, r, do_rim):
     C_ref, rim_ref = pallas_chain._chain_v_plain(
         field, e8, T, q0, zval, ztrg.expand(B), thr, dy, -(-D // 8) * 8, kr, r, do_rim)
     span = float(C_ref.max() - C_ref.min())
-    _close(C, C_ref, 1e-5 * span)
+    _close(C, C_ref, 0.0)
     _close(rim, rim_ref, 1e-6)
     if do_rim:
         assert 0.0 < float(rim.mean()) < 1.0
@@ -235,9 +288,9 @@ def test_chain_stages(dev, shape, D, kr, r, do_rim):
 
 @pytest.mark.parametrize("halo", [12, 20, 49])
 def test_chain_halo_changes_work_not_result(dev, halo):
-    """Stage 1 re-matches taps outside its halo from the field: any halo
-    that holds the rim gives the default's result bit for bit (49 = D + 1
-    never re-matches and needs more than 48 KB of shared memory)."""
+    """Stage 1 keeps every row a tap can reach and no longer reads the
+    halo: any halo that holds the rim gives the default's result bit for
+    bit."""
     gen = torch.Generator(device=dev).manual_seed(halo)
     B, m, n, D = 2, 300, 160, 48
     (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, m * n)
@@ -248,6 +301,28 @@ def test_chain_halo_changes_work_not_result(dev, halo):
     C, rim = pallas_chain.chain_match_vert_rim(*args)
     C_h, rim_h = pallas_chain.chain_match_vert_rim(*args, halo=halo)
     assert torch.equal(C, C_h) and torch.equal(rim, rim_h)
+
+
+def test_chain_stage1_geometry_and_limits(dev):
+    """Stage 1's ring, shared memory and matches per output at path A's
+    shape; a ring beyond the card's shared memory, and a rim radius beyond
+    a byte distance, are refused and raise."""
+    info = pallas_chain.stage1_info(512, 512, 48, 2, 10)
+    assert info["ring_rows"] == 2 * 32 + 49 + 48
+    # 8 strips of 64 columns, each matched with 12 columns on either side
+    # that lie in the field: 76 + 6 x 88 + 76 columns a row
+    assert info["matches_per_output"] == (2 * 76 + 6 * 88) / 512
+    assert 48 * 1024 < info["smem_bytes"] < 64 * 1024 and info["blocks_per_sm"] >= 1
+    assert pallas_chain.stage1_info(512, 512, 48, 2, 10, do_rim=False)["matches_per_output"] == 1
+    B, m, n = 1, 1000, 64
+    f = torch.zeros((B, m, n), device=dev)
+    e8, T = torch.zeros((B, 8), device=dev), torch.zeros((B, 8, 48), device=dev)
+    q = torch.zeros(B, device=dev)
+    with pytest.raises(RuntimeError):
+        pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 400, 2, 10)
+    with pytest.raises(RuntimeError):
+        pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 100, 200)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kr,r", [(1, 1), (2, 10), (3, 6)])
