@@ -24,8 +24,10 @@ Phases, each printing JSON lines:
    largest displacements;
    the chain is timed beside K3 -> K4 -> K2 on those inputs, stage 1
    also on a LUT that fails its prefix-table check (the exact 15-term
-   fallback), with its shared memory, blocks per SM and matches per
-   output from the kernel's own geometry;
+   fallback); stage 1's matches per output are counted on the card by
+   its counting instantiation and held against its geometry, whose
+   shared memory, ring and blocks per SM (computed, not measured) print
+   on a line of their own;
 4. parity: the deterministic STEPS loop at 256^2 through the chain on the
    card against the plain chain on the CPU, same statics;
 5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
@@ -262,6 +264,31 @@ def _record(name, source, replaces, counter, out, ref, tol, kernel, plain_ms,
     return rec
 
 
+def smooth_displacements(gen, batch, size, amp):
+    """Smooth random (batch, 2, size, size) displacements of at most 1.6
+    amp px, drawn on ``gen``'s card."""
+    dev = gen.device
+    yy = torch.linspace(0, 3, size, device=dev)[:, None]
+    xx = torch.linspace(0, 2, size, device=dev)[None, :]
+    a = torch.rand((batch, 2, 1, 1), generator=gen, device=dev) + 0.5
+    return amp * torch.stack([
+        a[:, 0] * torch.sin(xx + yy) + 0.1, -a[:, 1] * torch.cos(0.7 * xx - yy)
+    ], dim=1)
+
+
+def member_luts(gen, members, side):
+    """Member fields (members, side^2) in dB around the benchmark's last
+    frame, drawn on ``gen``'s card, and each member's PWL coefficients
+    against that frame."""
+    dev = gen.device
+    precip_db, _ = bench_inputs(side)
+    target = torch.as_tensor(precip_db[-1], device=dev)
+    tstate = pallas_histmatch.prepare_target(*_prepare_cdf_target(target))
+    noise = torch.randn((members, side, side), generator=gen, device=dev)
+    x = (target[None] + 2.0 * noise).reshape(members, -1)
+    return x, pallas_histmatch.build_pwl_coeffs(x, tstate)
+
+
 def _grid_sample_ms(field, disp, timer=None):
     """F.grid_sample (bilinear, zeros padding) of (B, 1, m, n) fields at
     displaced positions, timed by ``timer``: a yardstick close to K1/K2,
@@ -343,30 +370,10 @@ def phase_kernels(peaks, leads, captured, report):
     lead = leads[PATH_B[2] - 1]
     disp_bc = max(lead["max_abs_dx"], lead["max_abs_dy"])
 
-    def smooth_disp(batch, size, amp):
-        """Smooth random (batch, 2, size, size) displacements of at most
-        1.6 amp px."""
-        yy = torch.linspace(0, 3, size, device=dev)[:, None]
-        xx = torch.linspace(0, 2, size, device=dev)[None, :]
-        a = torch.rand((batch, 2, 1, 1), generator=gen, device=dev) + 0.5
-        return amp * torch.stack([
-            a[:, 0] * torch.sin(xx + yy) + 0.1, -a[:, 1] * torch.cos(0.7 * xx - yy)
-        ], dim=1)
-
-    def member_fields(members, side):
-        """Member fields in dB around the benchmark's last frame, with the
-        matcher's target state and each member's PWL coefficients."""
-        precip_db, _ = bench_inputs(side)
-        target = torch.as_tensor(precip_db[-1], device=dev)
-        tstate = pallas_histmatch.prepare_target(*_prepare_cdf_target(target))
-        noise = torch.randn((members, side, side), generator=gen, device=dev)
-        x = (target[None] + 2.0 * noise).reshape(members, -1)
-        return x, pallas_histmatch.build_pwl_coeffs(x, tstate)
-
     # K1: per-lead velocity sampling on the coarse grid, 96 members x 2
     # channels sharing one index plane per member, Dc = 12
     vel = torch.randn((E, 2, mc, mc), generator=gen, device=dev)
-    disp = smooth_disp(E, mc, 14.0)
+    disp = smooth_displacements(gen, E, mc, 14.0)
     for axis in (0, 1):
         pos = torch.arange(mc, device=dev, dtype=torch.float32)
         pos = pos[:, None] if axis == 0 else pos[None, :]
@@ -407,7 +414,7 @@ def phase_kernels(peaks, leads, captured, report):
         path A's lead PATH_B[2]) and K4 (the incremental-mask rim from the
         member fields ``x``, kr=2, r=10)."""
         field = x.reshape(members, side, side).contiguous()
-        disp = smooth_disp(members, side, disp_bc / 1.6)
+        disp = smooth_displacements(gen, members, side, disp_bc / 1.6)
         dy = disp[:, 1].contiguous()
         disp_t = disp.transpose(-1, -2).contiguous()
         k2 = _record(
@@ -439,7 +446,7 @@ def phase_kernels(peaks, leads, captured, report):
     # path B: 32 x 1024^2; K3 the PWL apply of the member fields against
     # the benchmark target
     E_b, side_b = PATH_B[0], PATH_B[1]
-    xb, (edges_b, d0_b, d1_b, q0_b, zval_b, ztrg_b) = member_fields(E_b, side_b)
+    xb, (edges_b, d0_b, d1_b, q0_b, zval_b, ztrg_b) = member_luts(gen, E_b, side_b)
     e8_b, T_b = pallas_histmatch.pack_gather_lut(edges_b, d0_b, d1_b)
     k3_args = (xb, e8_b, T_b, q0_b, zval_b, ztrg_b.expand(E_b))
     ref = pallas_histmatch._pwl_apply_gather_plain(*k3_args)
@@ -460,7 +467,7 @@ def phase_kernels(peaks, leads, captured, report):
 
     # path C: 96 x 320^2; the hierarchical map, and K2 and K4 again
     E_c, side_c = PATH_C[0], PATH_C[1]
-    xc, (edges_c, d0_c, d1_c, q0_c, zval_c, ztrg_c) = member_fields(E_c, side_c)
+    xc, (edges_c, d0_c, d1_c, q0_c, zval_c, ztrg_c) = member_luts(gen, E_c, side_c)
     e16, M3 = pallas_chain.pack_hier_lut(edges_c, d0_c, d1_c)
     hier_args = (xc, e16, M3, q0_c, zval_c, ztrg_c.expand(E_c))
     ref = pallas_histmatch._pwl_apply_hier_plain(*hier_args)
@@ -484,7 +491,7 @@ def phase_kernels(peaks, leads, captured, report):
     recs += [k2_b, k3, k4_b, hier]
 
     # K4 at init on path A: the rim of one 0/1 mask
-    x, (edges, d0, d1, q0, zval, ztrg) = member_fields(E, m)
+    x, (edges, d0, d1, q0, zval, ztrg) = member_luts(gen, E, m)
     mask = (x[:1].reshape(1, m, m) >= -10.0).to(torch.float32)
     recs.append(_record(
         "K4_rim_from_mask", "pysteps_tpu_torch/csrc/rim.cu",
@@ -573,6 +580,19 @@ def phase_kernels(peaks, leads, captured, report):
 
     C, rim = pallas_chain.chain_match_vert_rim(*v_args)
     C_ref, rim_ref = plain_v(T)
+    # the map evaluations stage 1 stores, counted on the card by its
+    # counting instantiation, against what its geometry says they must be
+    C_c, rim_c, matches = pallas_chain.stage1_matches(*v_args)
+    geometry = pallas_chain.stage1_info(m, n, D, kr, r, do_rim)
+    emit({"phase": "stage1_geometry", "computed": "from the kernel's geometry and "
+          "the occupancy API, not measured", "shape": [m, n], "D": D, "R": kr + r,
+          **geometry})
+    matches_per_output = matches / field.numel()
+    if not (torch.equal(C_c.nan_to_num(), C.nan_to_num()) and torch.equal(rim_c, rim)
+            and matches_per_output == geometry["matches_per_output"]):
+        raise AssertionError(
+            f"chain stage 1: the counting build matched {matches_per_output} pixels per "
+            f"output, not {geometry['matches_per_output']}, or gave other outputs")
     slow_args = v_args[:2] + (T_slow,) + v_args[3:]
     C_s, rim_s = pallas_chain.chain_match_vert_rim(*slow_args)
     C_sref, rim_sref = plain_v(T_slow)
@@ -600,8 +620,8 @@ def phase_kernels(peaks, leads, captured, report):
         # the match, one lerp, the rim's two min passes
         (pwl_ops + 6 + rim_ops) * field.numel(), peaks, "A", shape=list(field.shape),
         ms_slow_lut=steady_ms(lambda: pallas_chain.chain_match_vert_rim(*slow_args)),
-        stage1=pallas_chain.stage1_info(m, n, D, kr, r, do_rim),
-        ptxas=ptxas("pst_chain_v_kernel"), leads=leads, **timing,
+        matches_per_output=matches_per_output,
+        ptxas=ptxas("pst_chain_v_kernelILb0"), leads=leads, **timing,
     ))
     out = pallas_chain.chain_horiz(C, disp_t, D, cval)
     ref = pallas_warp._warp_h_plain(C, disp_t, D, cval)
@@ -844,7 +864,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
-             "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "stage1",
+             "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "matches_per_output",
              "library_same_counts", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],

@@ -61,6 +61,9 @@
 // - Warps 0-1 sweep the rim, warps 2-7 resample, and all eight match.
 //   32-row steps: taller ones hold more registers than two blocks an SM
 //   allow, shorter ones pay the barrier and the rim's look-ahead more often.
+// - A second instantiation (kCount) also counts the window pixels whose
+//   map it stores, so that a run can read the matches per output from the
+//   card (pst_chain_v_count); the launched one (pst_chain_v) does not.
 // Stage 2 is one thread per output pixel over 32 x 32 tiles: the two
 // transposed displacement planes are read coalesced and transposed through
 // shared memory, and C is read along rows.
@@ -190,12 +193,13 @@ __device__ __forceinline__ int cv_hdist(const unsigned* w, int nw, int p,
   return best;
 }
 
+template <bool kCount>
 __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
     const float* __restrict__ field, const float* __restrict__ e8,
     const float* __restrict__ T, const float* __restrict__ scal,
     const float* __restrict__ dy, float* __restrict__ C,
     float* __restrict__ mask, int m, int n, int D, int R, int r, float thr,
-    int do_rim) {
+    int do_rim, unsigned long long* __restrict__ nmatch) {
   extern __shared__ __align__(16) unsigned char sm[];
   const CvGeom g = cv_geom(m, D, R, do_rim);
   float2* sP = (float2*)(sm + g.P);
@@ -251,6 +255,7 @@ __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
 
   int s0 = 0;       // ring slot of the step's first row
   int fwd = R + 1;  // rim threads: forward distance carried down the strip
+  unsigned long long counted = 0;  // kCount: window pixels this warp matched
   unsigned* wbits = sbits + warp * CV_RPW * g.nw;
   // a warp matches CV_RPW rows at a time, 3 words of 32 columns each
   float v[CV_RPW][3];
@@ -295,6 +300,7 @@ __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
       for (int qq = 0; qq < 3; ++qq) {
         const int q = qb + qq;
         if (row < hi && q < g.nw) {  // warp-uniform
+          if (kCount) counted += __popc(__ballot_sync(0xffffffffu, in[rr][qq]));
           const int c = 32 * q + lane - g.hc;
           if (in[rr][qq] && c >= 0 && c < CV_W) sM[slot * CV_W + c] = mv[rr][qq];
           if (do_rim) {
@@ -416,6 +422,7 @@ __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
     s0 += CV_TH;
     if (s0 >= g.ring) s0 -= g.ring;
   }
+  if (kCount && lane == 0) atomicAdd(nmatch, counted);
 }
 
 __global__ void pst_chain_h_kernel(const float* __restrict__ C,
@@ -462,36 +469,64 @@ static long long pst_chain_v_bytes(int m, int D, int kr, int r, int do_rim) {
   return cv_geom(m, D, R, do_rim).bytes;
 }
 
-static long long pst_chain_v_granted[PST_MAX_DEVICES];
+static long long pst_chain_v_granted[2][PST_MAX_DEVICES];
+
+template <bool kCount>
+static int pst_chain_v_run(const void* field, const void* e8, const void* T,
+                           const void* scal, const void* dy, void* C,
+                           void* mask, long long batch, int m, int n, int D,
+                           int kr, int r, float thr, int do_rim,
+                           unsigned long long* nmatch, void* stream) {
+  const long long plane = (long long)m * n;
+  if (batch <= 0 || plane <= 0) return (int)cudaSuccess;
+  if (plane > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // int offsets
+  const long long smem = pst_chain_v_bytes(m, D, kr, r, do_rim);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = pst_allow_smem(pst_chain_v_kernel<kCount>, smem,
+                                         pst_chain_v_granted[kCount]);
+  if (err != cudaSuccess) return (int)err;
+  for (long long b0 = 0; b0 < batch; b0 += PST_MAX_GRID_YZ) {
+    const long long nb = batch - b0 < PST_MAX_GRID_YZ ? batch - b0 : PST_MAX_GRID_YZ;
+    dim3 grid((n + CV_W - 1) / CV_W, (unsigned int)nb);
+    pst_chain_v_kernel<kCount><<<grid, CV_WARPS * 32, smem, (cudaStream_t)stream>>>(
+        (const float*)field + b0 * plane, (const float*)e8 + b0 * 8,
+        (const float*)T + b0 * 8 * 48, (const float*)scal + b0 * 3,
+        (const float*)dy + b0 * plane, (float*)C + b0 * plane,
+        (float*)mask + b0 * plane, m, n, D, kr + r, r, thr, do_rim, nmatch);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int pst_chain_v(const void* field, const void* e8, const void* T,
                            const void* scal, const void* dy, void* C,
                            void* mask, long long batch, int m, int n, int D,
                            int kr, int r, float thr, int do_rim,
                            void* stream) {
-  const long long plane = (long long)m * n;
-  if (batch <= 0 || plane <= 0) return (int)cudaSuccess;
-  if (plane > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // int offsets
-  const long long smem = pst_chain_v_bytes(m, D, kr, r, do_rim);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      pst_allow_smem(pst_chain_v_kernel, smem, pst_chain_v_granted);
-  if (err != cudaSuccess) return (int)err;
-  for (long long b0 = 0; b0 < batch; b0 += PST_MAX_GRID_YZ) {
-    const long long nb = batch - b0 < PST_MAX_GRID_YZ ? batch - b0 : PST_MAX_GRID_YZ;
-    dim3 grid((n + CV_W - 1) / CV_W, (unsigned int)nb);
-    pst_chain_v_kernel<<<grid, CV_WARPS * 32, smem, (cudaStream_t)stream>>>(
-        (const float*)field + b0 * plane, (const float*)e8 + b0 * 8,
-        (const float*)T + b0 * 8 * 48, (const float*)scal + b0 * 3,
-        (const float*)dy + b0 * plane, (float*)C + b0 * plane,
-        (float*)mask + b0 * plane, m, n, D, kr + r, r, thr, do_rim);
-  }
-  return (int)cudaGetLastError();
+  return pst_chain_v_run<false>(field, e8, T, scal, dy, C, mask, batch, m, n,
+                                D, kr, r, thr, do_rim, nullptr, stream);
 }
 
-// What stage 1 asks of the card for these arguments: its dynamic shared
-// memory in bytes, the ring's rows, the blocks that fit on one SM and the
-// pixels it matches for one member (each strip's window, every row).
+// pst_chain_v through the counting instantiation: the same outputs, and in
+// *nmatch (one device word, zeroed here on the stream) the window pixels
+// whose map the blocks stored, over the whole batch.
+extern "C" int pst_chain_v_count(const void* field, const void* e8,
+                                 const void* T, const void* scal,
+                                 const void* dy, void* C, void* mask,
+                                 long long batch, int m, int n, int D, int kr,
+                                 int r, float thr, int do_rim, void* nmatch,
+                                 void* stream) {
+  const cudaError_t err =
+      cudaMemsetAsync(nmatch, 0, sizeof(unsigned long long), (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return pst_chain_v_run<true>(field, e8, T, scal, dy, C, mask, batch, m, n, D,
+                               kr, r, thr, do_rim, (unsigned long long*)nmatch,
+                               stream);
+}
+
+// What stage 1 asks of the card for these arguments, from its geometry
+// and the occupancy API: its dynamic shared memory in bytes, the ring's
+// rows, the blocks that fit on one SM and the pixels it should match for
+// one member (each strip's window, every row).
 extern "C" int pst_chain_v_info(int m, int n, int D, int kr, int r,
                                 int do_rim, long long* smem, int* ring,
                                 int* blocks_per_sm, long long* matches) {
@@ -502,10 +537,11 @@ extern "C" int pst_chain_v_info(int m, int n, int D, int kr, int r,
   *matches = 0;
   for (int j0 = 0; j0 < n; j0 += CV_W)
     *matches += (long long)m * (cv_min(n, j0 + CV_W + g.hc) - cv_max(0, j0 - g.hc));
-  cudaError_t err = pst_allow_smem(pst_chain_v_kernel, *smem, pst_chain_v_granted);
+  cudaError_t err = pst_allow_smem(pst_chain_v_kernel<false>, *smem,
+                                   pst_chain_v_granted[0]);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, pst_chain_v_kernel, CV_WARPS * 32, (size_t)*smem);
+      blocks_per_sm, pst_chain_v_kernel<false>, CV_WARPS * 32, (size_t)*smem);
   return (int)err;
 }
 

@@ -206,15 +206,19 @@ def _estimate_params(precip_aligned, weights_2d, mask_thr, ar_order, conditional
     return cascades, means, stds, gamma, phi
 
 
-def _chain_available(probmatching, interp_order, max_disp, shape, on_cuda):
+def _chain_available(probmatching, interp_order, max_disp, shape, on_cuda, rim=0):
     """Whether the fused match+rim+warp chain serves this configuration:
     the JAX package's gate (``pysteps_tpu/nowcasts/steps.py:247-263``),
-    with the card standing in for its Pallas switch."""
+    with the card standing in for its Pallas switch, and ``rim`` (the
+    incremental mask's kr + r, 0 without it) within what stage 1 takes.
+    JAX's chain has no rim limit; beyond it the scan takes the unfused
+    path, which computes the same."""
     return bool(
         probmatching == "cdf"
         and interp_order == 1
         and max_disp is not None
         and pallas_chain.supported(shape)
+        and rim <= pallas_chain.MAX_RIM
         and on_cuda
     )
 
@@ -614,6 +618,8 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
         use_chain=_chain_available(
             cfg.probmatching_method, interp_order, max_disp_scan, (m, n),
             not on_cpu,
+            rim=(struct_radius or 1) + (mask_rim or 0)
+            if cfg.mask_method == "incremental" else 0,
         ),
     )
     _sync(device)

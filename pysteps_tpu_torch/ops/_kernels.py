@@ -54,6 +54,8 @@ _SIGNATURES = {
     "pst_rim": (_vp, _f, _vp, _vp, _ll, _i, _i, _i, _i, _vp),
     # field, e8, T, scal, dy, C, mask, batch, m, n, D, kr, r, thr, do_rim, stream
     "pst_chain_v": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _vp),
+    # the same, then the device word that receives the matches, stream
+    "pst_chain_v_count": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _vp, _vp),
     # m, n, D, kr, r, do_rim -> smem bytes, ring rows, blocks per SM, matches
     "pst_chain_v_info": (_i,) * 6 + (_pll, _pi, _pi, _pll),
     # C, disp_t, out, batch, m, n, D, cval, stream

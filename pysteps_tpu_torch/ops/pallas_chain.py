@@ -37,6 +37,8 @@ L = 8  # edges per block
 # whole-field TPU kernels keep ~9 field buffers in VMEM); the port keeps
 # the gate so that both take the chain on the same configurations
 CHAIN_MAX_FIELD_BYTES = 1_200_000
+# the largest kr + r stage 1 takes with the rim: its distances are bytes
+MAX_RIM = 254
 
 
 def supported(shape):
@@ -92,6 +94,27 @@ def _chain_v_plain(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim):
     return C, rim
 
 
+def _launch_v(entry, field, e8, T, scal, thr, dy, D, kr, r, do_rim, *extra):
+    """Check stage 1's CUDA inputs and launch C entry ``entry`` on them
+    (``extra`` after its own arguments); returns ``(C, rim)``."""
+    B = field.shape[0]
+    if e8.shape != (B, 8) or T.shape != (B, 8, 48):
+        raise ValueError("match_warp_rim: e8 must be (B, 8), T (B, 8, 48)")
+    if dy.shape != field.shape:
+        raise ValueError("match_warp_rim: dy must be (B, m, n)")
+    _kernels.check_inputs(
+        "match_warp_rim", (field, e8, T, scal, dy), (torch.float32,) * 5
+    )
+    C = torch.empty_like(field)
+    rim = torch.empty_like(field)
+    _kernels.launch(
+        entry, field.device, field.data_ptr(), e8.data_ptr(), T.data_ptr(),
+        scal.data_ptr(), dy.data_ptr(), C.data_ptr(), rim.data_ptr(),
+        *field.shape, D, int(kr), int(r), float(thr), int(bool(do_rim)), *extra,
+    )
+    return C, rim
+
+
 def chain_match_vert_rim(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r,
                          do_rim=True, halo=None):
     """Stage 1 of the chain (replaces ``_k1_kernel``) on a (B, m, n)
@@ -104,39 +127,40 @@ def chain_match_vert_rim(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r,
     to D + 1 below) and does not read it, so it changes nothing.  On the
     card the ring of 2D + 65 rows (with ``kr + r <= D + 1``) must fit in
     shared memory, about D <= 320 for fields taller than the ring, and
-    ``kr + r`` be at most 254; otherwise the launch is refused and this
-    raises."""
+    ``kr + r`` be at most :data:`MAX_RIM`; otherwise the launch is refused
+    and this raises (the JAX kernel has neither limit)."""
     D = _round8(D)
-    B, m, n = field.shape
+    B = field.shape[0]
     if halo is not None and int(halo) < (kr + r if do_rim else 0):
         raise ValueError("match_warp_rim: the halo must hold the rim's kr + r rows")
     scal = _scalars(B, q0, zval, ztrg)
     if not field.is_cuda:
         return _chain_v_plain(field, e8, T, *scal.unbind(1), thr, dy, D, kr, r, do_rim)
-    if e8.shape != (B, 8) or T.shape != (B, 8, 48):
-        raise ValueError("match_warp_rim: e8 must be (B, 8), T (B, 8, 48)")
-    if dy.shape != field.shape:
-        raise ValueError("match_warp_rim: dy must be (B, m, n)")
-    _kernels.check_inputs(
-        "match_warp_rim", (field, e8, T, scal, dy), (torch.float32,) * 5
-    )
-    C = torch.empty_like(field)
-    rim = torch.empty_like(field)
-    _kernels.launch(
-        "pst_chain_v", field.device, field.data_ptr(), e8.data_ptr(),
-        T.data_ptr(), scal.data_ptr(), dy.data_ptr(), C.data_ptr(),
-        rim.data_ptr(), B, m, n, D, int(kr), int(r), float(thr),
-        int(bool(do_rim)),
-    )
+    out = _launch_v("pst_chain_v", field, e8, T, scal, thr, dy, D, kr, r, do_rim)
     _kernels.LAUNCHES["chain_match_vert_rim"] += 1
-    return C, rim
+    return out
+
+
+def stage1_matches(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim=True):
+    """Stage 1 on CUDA inputs through the kernel's counting instantiation:
+    ``(C, rim, matches)``, the outputs of :func:`chain_match_vert_rim` and
+    the window pixels whose PWL map the blocks stored, over the batch, as
+    counted on the card.  For measurement: not counted in
+    ``_kernels.LAUNCHES``, and no path calls it."""
+    scal = _scalars(field.shape[0], q0, zval, ztrg)
+    count = torch.empty(1, dtype=torch.int64, device=field.device)
+    C, rim = _launch_v("pst_chain_v_count", field, e8, T, scal, thr, dy,
+                       _round8(D), kr, r, do_rim, count.data_ptr())
+    return C, rim, int(count.item())
 
 
 def stage1_info(m, n, D, kr, r, do_rim=True, device=None):
     """What stage 1 asks of the card at these arguments (``D`` as the
-    caller gives it): ``smem_bytes`` of dynamic shared memory, ``ring_rows``,
-    ``blocks_per_sm`` and ``matches_per_output``, the PWL evaluations per
-    output pixel, from the kernel's own geometry.  Needs the card."""
+    caller gives it), worked out from the kernel's geometry and the
+    occupancy API, not measured: ``smem_bytes`` of dynamic shared memory,
+    ``ring_rows``, ``blocks_per_sm`` and ``matches_per_output``, the PWL
+    evaluations per output pixel when each window pixel is matched once
+    (:func:`stage1_matches` counts them).  Needs the card."""
     info = (ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
     with torch.cuda.device(device or torch.device("cuda")):
         err = _kernels.library().pst_chain_v_info(

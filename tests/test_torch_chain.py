@@ -10,6 +10,9 @@ package's chain test's (``tests/test_pallas_chain.py:73-81``): the warp
 within 1e-4 x span with identical NaN sets, the rim within 1e-6.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -166,6 +169,18 @@ def test_pack_hier_lut_matches_jax():
     # the a and b splits are bf16-exact: their low 16 bits are zero
     bits = M3_t[:, :48].contiguous().view(torch.int32)
     assert int((bits & 0xFFFF).abs().max()) == 0
+
+
+@pytest.mark.parametrize("rim,ok", [(0, True), (12, True), (tpc.MAX_RIM, True),
+                                    (tpc.MAX_RIM + 1, False)])
+def test_chain_gate_refuses_rims_stage1_cannot_take(rim, ok):
+    """Stage 1 keeps rim distances in bytes, so its launch refuses kr + r
+    above ``MAX_RIM`` (``CV_MAX_R`` in ``csrc/chain.cu``), where JAX's
+    chain has no limit: the STEPS gate then takes the unfused path."""
+    src = (Path(tpc.__file__).parent.parent / "csrc" / "chain.cu").read_text()
+    assert re.search(r"#define CV_MAX_R (\d+)", src).group(1) == str(tpc.MAX_RIM)
+    assert tsteps._chain_available("cdf", 1, 48, (512, 512), True, rim=rim) == ok
+    assert not tsteps._chain_available("cdf", 1, 48, (512, 512), False, rim=rim)
 
 
 @pytest.mark.parametrize("shape", [(512, 512), (1024, 1024), (320, 320), (128, 256)])

@@ -322,7 +322,41 @@ def test_chain_stage1_geometry_and_limits(dev):
         pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 400, 2, 10)
     with pytest.raises(RuntimeError):
         pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 100, 200)
+    # the rim limit falls at MAX_RIM, as the STEPS gate assumes
+    pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 4, pallas_chain.MAX_RIM - 4)
+    with pytest.raises(RuntimeError):
+        pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 4, pallas_chain.MAX_RIM - 3)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize(
+    "shape,D,kr,r,do_rim",
+    [
+        ((2, 512, 512), 48, 2, 10, True),
+        ((2, 512, 512), 48, 2, 10, False),
+        ((3, 300, 200), 48, 2, 10, True),
+        ((2, 700, 64), 0, 2, 10, True),
+        ((1, 150, 70), 16, 5, 40, True),
+    ],
+)
+def test_chain_stage1_matches_each_window_pixel_once(dev, shape, D, kr, r, do_rim):
+    """The counting instantiation stores the map of every window pixel once:
+    its count is the geometry's matches per output times the batch's
+    pixels, and its outputs are the launched kernel's."""
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    B, m, n = shape
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, m * n)
+    e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+    field = x.reshape(B, m, n).contiguous()
+    dy = _disp(gen, dev, B, m, n, 1.5 * max(D, 2))[:, 1].contiguous()
+    args = (field, e8, T, q0, zval, ztrg, 0.0, dy, D, kr, r, do_rim)
+    before = dict(_kernels.LAUNCHES)
+    C_c, rim_c, matches = pallas_chain.stage1_matches(*args)
+    assert _kernels.LAUNCHES == before
+    C, rim = pallas_chain.chain_match_vert_rim(*args)
+    assert torch.equal(C.nan_to_num(), C_c.nan_to_num()) and torch.equal(rim, rim_c)
+    info = pallas_chain.stage1_info(m, n, D, kr, r, do_rim)
+    assert matches == round(info["matches_per_output"] * B * m * n)
 
 
 @pytest.mark.parametrize("kr,r", [(1, 1), (2, 10), (3, 6)])
