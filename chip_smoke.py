@@ -27,7 +27,8 @@ Phases, each printing JSON lines:
    fallback); stage 1's matches per output are counted on the card by
    its counting instantiation and held against its geometry, whose
    shared memory, ring and blocks per SM (computed, not measured) print
-   on a line of their own;
+   on a line of their own, as K4's tile geometry does for each of its
+   rows; K4 from a mask reads the bool mask that STEPS gives it;
 4. parity: the deterministic STEPS loop at 256^2 through the chain on the
    card against the plain chain on the CPU, same statics;
 5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
@@ -360,6 +361,13 @@ def phase_kernels(peaks, leads, captured, report):
         """The report's entries of the kernels a row launches."""
         return [v for k, v in sorted(report.items()) if any(n in k for n in names)]
 
+    def k4_geometry(shape, path):
+        """K4's tile geometry at kr 2, r 10 on its own line: computed from
+        its layout and the occupancy API, not measured."""
+        emit({"phase": "k4_geometry", "computed": "from the kernel's layout and the "
+              "occupancy API, not measured", "path": path, "shape": list(shape),
+              "R": 12, **pallas_dilate.rim_info(*shape, 2, 10)})
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     recs = []
@@ -439,8 +447,10 @@ def phase_kernels(peaks, leads, captured, report):
             cuda_ms(lambda: pallas_dilate._rim_plain(field, -10.0, 2, 10), 3),
             None, "none: no PyTorch call computes a bounded L1 distance transform",
             4 * 2 * field.numel(), rim_ops * field.numel(), peaks, path,
-            shape=list(field.shape), ptxas=ptxas("pst_rim_"),
+            shape=list(field.shape), route=pallas_dilate.rim_route(2, 10),
+            ptxas=ptxas("pst_rim_tile_kernelIfLb0"),
         )
+        k4_geometry(field.shape, path)
         return k2, k4
 
     # path B: 32 x 1024^2; K3 the PWL apply of the member fields against
@@ -490,20 +500,24 @@ def phase_kernels(peaks, leads, captured, report):
     k4_b["at_C"] = {k: k4_c[k] for k in at_c}
     recs += [k2_b, k3, k4_b, hier]
 
-    # K4 at init on path A: the rim of one 0/1 mask
+    # K4 at init on path A: the rim of one bool mask, as STEPS passes it
     x, (edges, d0, d1, q0, zval, ztrg) = member_luts(gen, E, m)
-    mask = (x[:1].reshape(1, m, m) >= -10.0).to(torch.float32)
+    mask = x[:1].reshape(1, m, m) >= -10.0
+    mask_f = mask.to(torch.float32)
     recs.append(_record(
         "K4_rim_from_mask", "pysteps_tpu_torch/csrc/rim.cu",
         "pysteps_tpu/ops/pallas_dilate.py:115", "rim_from_mask",
-        pallas_dilate.dilated_rim(mask, 2, 10), pallas_dilate._rim_plain(mask, 0.5, 2, 10),
+        pallas_dilate.dilated_rim(mask, 2, 10), pallas_dilate._rim_plain(mask_f, 0.5, 2, 10),
         1e-6,
         lambda: pallas_dilate.dilated_rim(mask, 2, 10),
-        cuda_ms(lambda: pallas_dilate._rim_plain(mask, 0.5, 2, 10), 3),
+        cuda_ms(lambda: pallas_dilate._rim_plain(mask.to(torch.float32), 0.5, 2, 10), 3),
         None, "none: no PyTorch call computes a bounded L1 distance transform",
-        4 * 2 * mask.numel(), rim_ops * mask.numel(), peaks, "A", shape=list(mask.shape),
-        ptxas=ptxas("pst_rim_"),
+        # the bool mask read once, the rim written
+        (1 + 4) * mask.numel(), rim_ops * mask.numel(), peaks, "A", shape=list(mask.shape),
+        dtype="bool", route=pallas_dilate.rim_route(2, 10),
+        ptxas=ptxas("pst_rim_tile_kernelIhLb0"),
     ))
+    k4_geometry(mask.shape, "A")
 
     # the flat map on path D's shapes: 96 x 512^2
     w = pallas_histmatch.flat_weights(d0, d1)
@@ -865,7 +879,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
              "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "matches_per_output",
-             "library_same_counts", "ptxas")
+             "library_same_counts", "dtype", "route", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})

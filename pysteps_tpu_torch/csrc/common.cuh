@@ -124,3 +124,48 @@ __device__ __forceinline__ float pst_rim_of(float d, int R, int r) {
   const float rim = __fdiv_rn(__fsub_rn((float)(R + 1), d), (float)(r + 1));
   return fminf(fmaxf(rim, 0.0f), 1.0f);
 }
+
+// Distance from window position p to the nearest wet bit within R
+// positions, R + 1 if none; w holds the row's nw wet words (K4 and the
+// chain).  For R <= 31 two funnel shifts bring the 32 positions on either
+// side of p into one word each; a wider rim walks the words.
+__device__ __forceinline__ int pst_hdist(const unsigned* w, int nw, int p,
+                                         int R) {
+  if (R <= 31) {
+    const int q = p >> 5, off = p & 31;
+    const unsigned cur = w[q];
+    const unsigned prev = q > 0 ? w[q - 1] : 0u;
+    const unsigned next = q + 1 < nw ? w[q + 1] : 0u;
+    const unsigned left = __funnelshift_rc(prev, cur, off + 1);  // bit 31: p
+    const unsigned right = __funnelshift_r(cur, next, off);      // bit 0: p
+    const int dl = __clz(left), dr = right ? __ffs(right) - 1 : 32;
+    return min(min(dl, dr), R + 1);
+  }
+  int best = R + 1;
+  int q = p >> 5, base = q << 5;
+  unsigned bits = w[q] & (0xffffffffu >> (31 - (p & 31)));
+  for (;;) {  // leftward: the highest wet position <= p
+    if (bits) {
+      best = min(best, p - (base + 31 - __clz(bits)));
+      break;
+    }
+    if (q == 0 || p - base + 1 > R) break;
+    --q;
+    base -= 32;
+    bits = w[q];
+  }
+  q = p >> 5;
+  base = q << 5;
+  bits = w[q] & (0xffffffffu << (p & 31));
+  for (;;) {  // rightward: the lowest wet position >= p
+    if (bits) {
+      best = min(best, base + __ffs(bits) - 1 - p);
+      break;
+    }
+    if (q + 1 >= nw || base + 32 - p > R) break;
+    ++q;
+    base += 32;
+    bits = w[q];
+  }
+  return best;
+}

@@ -50,8 +50,11 @@ _SIGNATURES = {
     "pst_warp": (_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _f, _i, _vp),
     # x, e8, T, scal, out, batch, N, stream
     "pst_pwl_gather": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
-    # field, thr, scratch, out, batch, m, n, kr, r, stream
-    "pst_rim": (_vp, _f, _vp, _vp, _ll, _i, _i, _i, _i, _vp),
+    # x, is_bytes, thr, strict, scratch (kr + r > 254 only), out, batch, m,
+    # n, kr, r, stream
+    "pst_rim": (_vp, _i, _f, _i, _vp, _vp, _ll, _i, _i, _i, _i, _vp),
+    # batch, m, n, kr, r -> H, W, smem bytes, blocks, blocks per SM
+    "pst_rim_info": (_ll, _i, _i, _i, _i, _pi, _pi, _pll, _pll, _pi),
     # field, e8, T, scal, dy, C, mask, batch, m, n, D, kr, r, thr, do_rim, stream
     "pst_chain_v": (_vp,) * 7 + (_ll, _i, _i, _i, _i, _i, _f, _i, _vp),
     # the same, then the device word that receives the matches, stream

@@ -64,7 +64,7 @@ def save():
             row["e16"], row["M3"] = pallas_chain.pack_hier_lut(edges, d0, d1)
         out[label] = row
     x, (edges, d0, d1, q0, _, _) = cs.member_luts(gen, E, cs.SIDE)
-    out["A"] = {"mask": (x[:1].reshape(1, cs.SIDE, cs.SIDE) >= -10.0).to(torch.float32),
+    out["A"] = {"mask": x[:1].reshape(1, cs.SIDE, cs.SIDE) >= -10.0,
                 "x": x, "edges": edges.contiguous(),
                 "w": pallas_histmatch.flat_weights(d0, d1), "q0": q0}
     out["chain"] = dict(a, D=pallas_warp._round8(a["D"]))

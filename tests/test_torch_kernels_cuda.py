@@ -376,6 +376,92 @@ def test_k4_rim(dev, kr, r, shape):
     assert _kernels.LAUNCHES["rim_from_mask"] == before["rim_from_mask"] + 1
 
 
+def _rim_field(gen, dev, shape, nan_frac=0.03):
+    """Uniform [0, 1) fields with a share of NaN pixels."""
+    field = torch.rand(shape, generator=gen, device=dev)
+    nan = torch.rand(shape, generator=gen, device=dev) < nan_frac
+    return torch.where(nan, float("nan"), field)
+
+
+@pytest.mark.parametrize("kr,r", [
+    (0, 0),  # R = 0: only wet pixels count
+    (2, 10),  # the STEPS rim
+    (3, 28),  # R = 31, the last funnel-shift radius
+    (3, 30),  # R = 33: the word walk
+    (4, 250),  # R = 254, the tile kernel's limit
+    (5, 250),  # R = 255: the two-pass kernels
+])
+@pytest.mark.parametrize("shape", [
+    (5, 130, 67),  # neither side a multiple of the tile
+    (1, 9, 10),  # every R but 0 wider than the field
+    (1, 512, 512),  # the STEPS init mask
+    (300, 64, 64),  # more blocks than one wave
+])
+def test_k4_rim_tiles(dev, kr, r, shape):
+    """Both entry points on fields with NaN pixels against the plain
+    version, two calls in a row, each call one launch of its counter."""
+    gen = torch.Generator(device=dev).manual_seed(kr + 7 * r + shape[1])
+    field = _rim_field(gen, dev, shape)
+    field[:, 0, 0] = 1.0  # at least one wet pixel a member
+    thr = 0.97
+    ref = pallas_dilate._rim_plain(field, thr, kr, r)
+    mask = field >= thr
+    for _ in range(2):
+        before = dict(_kernels.LAUNCHES)
+        out = pallas_dilate.dilated_rim_from_field(field, thr, kr, r)
+        out_m = pallas_dilate.dilated_rim(mask, kr, r)
+        after = dict(_kernels.LAUNCHES)
+        _close(out, ref, 1e-6)
+        _close(out_m, ref, 1e-6)
+        assert after == dict(before, rim_from_field=before["rim_from_field"] + 1,
+                             rim_from_mask=before["rim_from_mask"] + 1)
+    assert 0.0 < float(ref.mean()) < 1.0
+
+
+@pytest.mark.parametrize("thr", [float("inf"), float("-inf")])
+def test_k4_rim_infinite_thresholds(dev, thr):
+    """+inf: only +inf pixels are wet; -inf: all but NaN."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    field = _rim_field(gen, dev, (3, 70, 150), nan_frac=0.2)
+    field[0, 5, 9] = float("inf")
+    out = pallas_dilate.dilated_rim_from_field(field, thr, 2, 10)
+    _close(out, pallas_dilate._rim_plain(field, thr, 2, 10), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.uint8, torch.float32, torch.int32])
+def test_k4_rim_mask_dtypes(dev, dtype):
+    """The mask entry point reads bool, uint8 and float32 masks as given
+    (wet where > 0: a float mask's values in (0, 1) and not its NaN or
+    negative ones); other dtypes are made bool first."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    u = torch.rand((2, 97, 131), generator=gen, device=dev)
+    vals = torch.where(u > 0.98, u - 0.5, torch.where(u < 0.01, -u, 0.0))
+    if dtype == torch.float32:
+        vals = torch.where(u < 0.003, float("nan"), vals)
+        mask = vals
+    else:
+        mask = (vals > 0).to(dtype) * (3 if dtype != torch.bool else 1)
+    ref = pallas_dilate._rim_plain((vals > 0).to(torch.float32), 0.5, 2, 10)
+    before = _kernels.LAUNCHES["rim_from_mask"]
+    _close(pallas_dilate.dilated_rim(mask, 2, 10), ref, 1e-6)
+    assert _kernels.LAUNCHES["rim_from_mask"] == before + 1
+
+
+def test_k4_rim_route_and_geometry(dev):
+    """The tile kernel up to MAX_RIM; its tile rows fill the card for the
+    STEPS init mask and stay 128 for a large batch."""
+    assert pallas_dilate.rim_route(4, pallas_dilate.MAX_RIM - 4) == "tile"
+    assert pallas_dilate.rim_route(4, pallas_dilate.MAX_RIM - 3) == "two_pass"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    init = pallas_dilate.rim_info(1, 512, 512, 2, 10)
+    assert init["W"] == 128 and init["H"] == 8 and init["blocks"] >= sms
+    big = pallas_dilate.rim_info(32, 1024, 1024, 2, 10)
+    assert big["H"] == 128 and big["blocks"] == 32 * 8 * 8
+    assert big["blocks_per_sm"] == 8
+    with pytest.raises(RuntimeError):
+        pallas_dilate.rim_info(1, 64, 64, 4, pallas_dilate.MAX_RIM - 3)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     f = torch.zeros((2, 16, 16), device=dev)
     idx = torch.zeros((2, 16, 16), dtype=torch.int32, device=dev)
