@@ -22,13 +22,14 @@ Phases, each printing JSON lines:
    as ``ms_eager``.  The chain and the CDF counts run on the inputs of
    path A's last lead, recorded from one forecast with each lead's
    largest displacements;
-   the chain is timed beside K3 -> K4 -> K2 on those inputs, stage 1
-   also on a LUT that fails its prefix-table check (the exact 15-term
-   fallback); stage 1's matches per output are counted on the card by
-   its counting instantiation and held against its geometry, whose
-   shared memory, ring and blocks per SM (computed, not measured) print
-   on a line of their own, as K4's tile geometry does for each of its
-   rows; K4 from a mask reads the bool mask that STEPS gives it;
+   the chain is timed beside K3 -> K4 -> K2 on those inputs; stage 1
+   and K3 also on a LUT that fails their prefix-table check (the exact
+   15-term fallback, ``ms_slow_lut``); stage 1's matches per output are
+   counted on the card by its counting instantiation and held against its
+   geometry, whose shared memory, ring and blocks per SM (computed, not
+   measured) print on a line of their own, as K2's route and tile
+   geometry and K4's tile geometry do for each of their rows; K4 from a
+   mask reads the bool mask that STEPS gives it;
 4. parity: the deterministic STEPS loop at 256^2 through the chain on the
    card against the plain chain on the CPU, same statics;
 5. path A, the main path: ``nowcasts.get_method("steps")`` at 96 members
@@ -361,6 +362,19 @@ def phase_kernels(peaks, leads, captured, report):
         """The report's entries of the kernels a row launches."""
         return [v for k, v in sorted(report.items()) if any(n in k for n in names)]
 
+    def k2_geometry(shape, path):
+        """K2's route and tile geometry at D 48 on its own line: computed
+        from its layout (``warp_geometry``) and the occupancy API, not
+        measured."""
+        geo = pallas_warp.warp_geometry(*shape, 48, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        if geo["route"] == "tile":
+            geo.update(pallas_warp.warp_info(geo))
+        emit({"phase": "k2_geometry", "computed": "from the kernel's layout and the "
+              "occupancy API, not measured", "path": path, "shape": list(shape),
+              "D": 48, **geo})
+        return geo
+
     def k4_geometry(shape, path):
         """K4's tile geometry at kr 2, r 10 on its own line: computed from
         its layout and the occupancy API, not measured."""
@@ -425,18 +439,20 @@ def phase_kernels(peaks, leads, captured, report):
         disp = smooth_displacements(gen, members, side, disp_bc / 1.6)
         dy = disp[:, 1].contiguous()
         disp_t = disp.transpose(-1, -2).contiguous()
+        geo = k2_geometry(field.shape, path)
         k2 = _record(
             "K2_warp", "pysteps_tpu_torch/csrc/warp.cu",
             "pysteps_tpu/ops/pallas_warp.py:216", "warp",
             pallas_warp.warp_fused(field, dy, disp_t, 48, nan),
-            pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan),
-            1e-5 * float(field.max() - field.min()),
+            # the same operations in the same order: equal under ==
+            pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan), 0.0,
             lambda: pallas_warp.warp_fused(field, dy, disp_t, 48, nan),
             cuda_ms(lambda: pallas_warp._warp_fused_plain(field, dy, disp_t, 48, nan), 5),
             _grid_sample_ms(field, disp),
             "F.grid_sample bilinear (close, not the same function)",
             4 * 5 * field.numel(), 12 * field.numel(), peaks, path,
-            shape=list(field.shape), ptxas=ptxas("pst_warp_"),
+            shape=list(field.shape), warp_route=geo["route"],
+            ptxas=ptxas("pst_warp_tile_kernel" if geo["route"] == "tile" else "pst_warp_"),
         )
         k4 = _record(
             "K4_rim_from_field", "pysteps_tpu_torch/csrc/rim.cu",
@@ -447,7 +463,7 @@ def phase_kernels(peaks, leads, captured, report):
             cuda_ms(lambda: pallas_dilate._rim_plain(field, -10.0, 2, 10), 3),
             None, "none: no PyTorch call computes a bounded L1 distance transform",
             4 * 2 * field.numel(), rim_ops * field.numel(), peaks, path,
-            shape=list(field.shape), route=pallas_dilate.rim_route(2, 10),
+            shape=list(field.shape), rim_route=pallas_dilate.rim_route(2, 10),
             ptxas=ptxas("pst_rim_tile_kernelIfLb0"),
         )
         k4_geometry(field.shape, path)
@@ -461,19 +477,31 @@ def phase_kernels(peaks, leads, captured, report):
     k3_args = (xb, e8_b, T_b, q0_b, zval_b, ztrg_b.expand(E_b))
     ref = pallas_histmatch._pwl_apply_gather_plain(*k3_args)
     k2_b, k4_b = k2_k4(E_b, side_b, xb, "B")
+    if not bool(pallas_histmatch._pwl_prefix_ok(T_b).all()):
+        raise AssertionError("K3: path B's LUTs fail the prefix-table check")
+    # the same LUTs with one fine edge of each member's top block made NaN:
+    # the check fails, so K3 takes the 15-term sum
+    T_b_slow = T_b.clone()
+    T_b_slow[:, 7, 14] = float("nan")
+    slow_args = k3_args[:2] + (T_b_slow,) + k3_args[3:]
+    err_slow = float((pallas_histmatch.pwl_apply_gather(*slow_args)
+                      - pallas_histmatch._pwl_apply_gather_plain(*slow_args)).abs().max())
+    if err_slow != 0.0:
+        raise AssertionError(f"K3: the 15-term fallback differs from the plain version by {err_slow}")
     k3 = _record(
         "K3_pwl_gather", "pysteps_tpu_torch/csrc/pwl.cu",
         "pysteps_tpu/ops/pallas_histmatch.py:199", "pwl_gather",
-        pallas_histmatch.pwl_apply_gather(*k3_args), ref,
-        1e-5 * float(ref.abs().max()),
+        # the prefix tables' sums equal K3's 15-term sums under ==
+        pallas_histmatch.pwl_apply_gather(*k3_args), ref, 0.0,
         lambda: pallas_histmatch.pwl_apply_gather(*k3_args),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_gather_plain(*k3_args), 3),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * xb.numel() + e8_b.numel() + T_b.numel() + 3 * E_b),
         pwl_ops * xb.numel(), peaks, "B", shape=list(xb.shape),
+        ms_slow_lut=steady_ms(lambda: pallas_histmatch.pwl_apply_gather(*slow_args)),
         ptxas=ptxas("pst_pwl_gather_kernel"),
     )
-    del xb, k3_args, ref
+    del xb, k3_args, ref, slow_args
 
     # path C: 96 x 320^2; the hierarchical map, and K2 and K4 again
     E_c, side_c = PATH_C[0], PATH_C[1]
@@ -495,7 +523,8 @@ def phase_kernels(peaks, leads, captured, report):
     )
     k2_c, k4_c = k2_k4(E_c, side_c, xc, "C")
     del xc, hier_args, ref
-    at_c = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    at_c = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "ms_eager")
     k2_b["at_C"] = {k: k2_c[k] for k in at_c}
     k4_b["at_C"] = {k: k4_c[k] for k in at_c}
     recs += [k2_b, k3, k4_b, hier]
@@ -514,7 +543,7 @@ def phase_kernels(peaks, leads, captured, report):
         None, "none: no PyTorch call computes a bounded L1 distance transform",
         # the bool mask read once, the rim written
         (1 + 4) * mask.numel(), rim_ops * mask.numel(), peaks, "A", shape=list(mask.shape),
-        dtype="bool", route=pallas_dilate.rim_route(2, 10),
+        dtype="bool", rim_route=pallas_dilate.rim_route(2, 10),
         ptxas=ptxas("pst_rim_tile_kernelIhLb0"),
     ))
     k4_geometry(mask.shape, "A")
@@ -879,7 +908,7 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
              "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "matches_per_output",
-             "library_same_counts", "dtype", "route", "ptxas")
+             "library_same_counts", "dtype", "warp_route", "rim_route", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})

@@ -37,18 +37,11 @@
 //   field loads of a step's new rows are issued before the step before it
 //   computes, and a warp maps all its values before it stores any, so the
 //   maps' table loads overlap.
-// - The PWL map reads prefix tables: pack_gather_lut sorts its edges, so
-//   within a row of T the selected fine terms are a prefix 0..t-1 and the
-//   15-term sum equals its running sum stopped at t (each later term is
-//   x * 0 = +-0, which leaves the sum equal under ==).  A block builds the
-//   running sums in the K3 order (__fadd_rn of __fmul_rn(d, 1)), then a
-//   pixel costs 7 block-start compares, a 4-step search among its row's
-//   fine edges and one 8-byte load, in place of 45 loads.  The tables have
-//   an odd row stride (17), so rows start on distinct banks.  The
-//   equality needs every row's edges nondecreasing and free of NaN and
-//   every d0/d1 term finite; a block checks its member's LUT once and
-//   otherwise takes the 15-term sum of pst_pwl_gather_eval (a uniform
-//   branch), so any LUT gives K3's values.
+// - The PWL map reads per-member prefix tables, common.cuh's
+//   pst_pwl_prefix_build / pst_pwl_prefix_eval, which K3 (pwl.cu)
+//   evaluates too: 7 block-start compares, a 4-step search and one 8-byte
+//   load a pixel, equal under == to K3's 15-term sum; a LUT that fails the
+//   table check takes that sum (pst_pwl_sum_eval, a uniform branch).
 // - The rim keeps only wet bits and byte distances.  A warp matches whole
 //   rows of the window, 32 columns at a time, and its ballot is the row's
 //   wet bit word; the horizontal distance (capped at R + 1) of each output
@@ -78,7 +71,6 @@
 #define CV_WARPS 8
 #define CV_RIM_WARPS 2  // one rim thread per output column
 #define CV_RPW (CV_TH / CV_WARPS)  // rows a warp matches per round
-#define CV_LS 17      // row stride of the prefix tables (odd: distinct banks)
 #define CV_MAX_R 254  // byte distances hold R + 1
 #define CH_T2 32      // stage 2 square tile
 
@@ -109,9 +101,9 @@ __host__ __device__ inline CvGeom cv_geom(int m, int D, int R, int do_rim) {
   g.hhi = (int)cv_max(Dr + 1, g.hc);
   g.ring = (int)cv_min(m, 2 * CV_TH + g.hhi + Dr);
   long long off = 0;
-  g.P = off;    off += 8 * CV_LS * 8;  // float2 prefix sums (acc0, acc1)
+  g.P = off;    off += 8 * PST_PWL_LS * 8;  // float2 prefix sums (acc0, acc1)
   g.T = off;    off += 8 * 48 * 4;     // the gather LUT as given
-  g.E = off;    off += 8 * CV_LS * 4;  // fine edges
+  g.E = off;    off += 8 * PST_PWL_LS * 4;  // fine edges
   g.e8 = off;   off += 8 * 4;
   g.rim = off;  off += do_rim ? ((R + 2) * 4 + 15) / 16 * 16 : 0;
   g.M = off;    off += (long long)g.ring * CV_W * 4;  // matched ring
@@ -119,33 +111,6 @@ __host__ __device__ inline CvGeom cv_geom(int m, int D, int R, int do_rim) {
   g.dh = off;   off += do_rim ? (long long)g.ring * CV_W : 0;  // byte distances
   g.bytes = off;
   return g;
-}
-
-// Stage 1's PWL map from the prefix tables (see the design note): equal
-// under == to pst_pwl_gather_eval when the member's LUT passed the check.
-__device__ __forceinline__ float cv_pwl_prefix_eval(
-    float v, const float* e8r, const float* sE, const float2* sP, float q0,
-    float zval, float ztrg) {
-  int idx = 0;
-#pragma unroll
-  for (int g = 1; g < 8; ++g) idx += v >= e8r[g] ? 1 : 0;
-  const float* e = sE + idx * CV_LS;
-  // t = #{j : v >= e[j]}, the selected prefix of the sorted fine edges
-  int t = v >= e[7] ? 8 : 0;
-  t += v >= e[t + 3] ? 4 : 0;
-  t += v >= e[t + 1] ? 2 : 0;
-  t += v >= e[t] ? 1 : 0;
-  const float2 acc = sP[idx * CV_LS + t];
-  const float o = __fadd_rn(__fadd_rn(q0, acc.x), __fmul_rn(v, acc.y));
-  return v == zval ? ztrg : o;
-}
-
-// K3's 15-term sum for a block whose LUT fails the prefix-table check; out
-// of line, so the prefix path's registers stay its own.
-__device__ __noinline__ float cv_pwl_sum_eval(float v, const float* se8,
-                                              const float* sT, float q0,
-                                              float zval, float ztrg) {
-  return pst_pwl_gather_eval(v, se8, sT, q0, zval, ztrg);
 }
 
 template <bool kCount>
@@ -185,25 +150,7 @@ __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
       srim[d] = pst_rim_of((float)d, R, r);
   const float q0 = scal[b * 3], zval = scal[b * 3 + 1], ztrg = scal[b * 3 + 2];
   __syncthreads();
-  int ok = 1;
-  if (tid < 8) {
-    const float* row = sT + tid * 48;
-    for (int j = 0; j < 14; ++j) ok &= row[j] <= row[j + 1] ? 1 : 0;  // NaN fails
-    for (int j = 15; j < 45; ++j) ok &= isfinite(row[j]) ? 1 : 0;
-  } else if (tid < 24) {
-    const int gi = (tid - 8) >> 1, c = tid & 1;
-    const float* row = sT + gi * 48;
-    float* out = (float*)sP + 2 * gi * CV_LS + c;
-    float acc = row[45 + c];
-    out[0] = acc;
-    for (int j = 0; j < 15; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(row[15 + 15 * c + j], 1.0f));
-      out[2 * (j + 1)] = acc;
-    }
-  }
-  for (int k = tid; k < 8 * 15; k += blockDim.x)
-    sE[(k / 15) * CV_LS + k % 15] = sT[(k / 15) * 48 + k % 15];
-  const bool fast = __syncthreads_and(ok);
+  const bool fast = __syncthreads_and(pst_pwl_prefix_build(sT, sP, sE));
   float e8r[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) e8r[k] = se8[k];
@@ -238,13 +185,13 @@ __global__ void __launch_bounds__(CV_WARPS * 32) pst_chain_v_kernel(
       for (int rr = 0; rr < CV_RPW; ++rr)
 #pragma unroll
         for (int qq = 0; qq < 3; ++qq)
-          mv[rr][qq] = cv_pwl_prefix_eval(v[rr][qq], e8r, sE, sP, q0, zval, ztrg);
+          mv[rr][qq] = pst_pwl_prefix_eval(v[rr][qq], e8r, sE, sP, q0, zval, ztrg);
     } else {
 #pragma unroll
       for (int rr = 0; rr < CV_RPW; ++rr)
 #pragma unroll
         for (int qq = 0; qq < 3; ++qq)
-          mv[rr][qq] = in[rr][qq] ? cv_pwl_sum_eval(v[rr][qq], se8, sT, q0, zval, ztrg)
+          mv[rr][qq] = in[rr][qq] ? pst_pwl_sum_eval(v[rr][qq], se8, sT, q0, zval, ztrg)
                                   : 0.0f;
     }
 #pragma unroll

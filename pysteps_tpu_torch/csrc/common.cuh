@@ -118,6 +118,79 @@ __device__ __forceinline__ void pst_pwl_gather_load(const float* e8,
   if (threadIdx.x < 8) se8[threadIdx.x] = e8[threadIdx.x];
 }
 
+// K3's map from per-member prefix tables (K3 and chain stage 1).
+// pack_gather_lut sorts its edges, so within a row of T the fine terms a
+// value selects are a prefix 0..t-1, and the 15-term sum equals its running
+// sum stopped at t: each later term is d * 0 = +-0, which leaves the sum
+// equal under ==.  The block builds the running sums of each row in K3's
+// order (__fadd_rn of __fmul_rn(d, 1)); a value then costs 7 block-start
+// compares, a 4-step search among its row's fine edges and one 8-byte
+// load, in place of 45 loads.  The equality needs every row's edges
+// nondecreasing and free of NaN and every d0/d1 term finite: the block
+// checks its member's LUT once and otherwise takes the 15-term sum of
+// pst_pwl_gather_eval (pst_pwl_sum_eval, a uniform branch), so any LUT
+// gives K3's values.  The tables have an odd row stride, so rows start on
+// distinct banks.
+#define PST_PWL_LS 17
+
+// Build the prefix tables of the LUT sT (8, 48) in shared memory: sP the
+// (8, PST_PWL_LS) float2 running sums (acc0, acc1) after t = 0..15 terms,
+// sE the (8, PST_PWL_LS) fine edges.  Threads 0-7 check a row each,
+// threads 8-23 sum a row's d0 or d1 (blockDim.x >= 24).  Returns this
+// thread's share of the check: the caller's __syncthreads_and of it (the
+// barrier before the tables are read) says whether the LUT passed.
+__device__ __forceinline__ int pst_pwl_prefix_build(const float* sT,
+                                                    float2* sP, float* sE) {
+  const int tid = threadIdx.x;
+  int ok = 1;
+  if (tid < 8) {
+    const float* row = sT + tid * 48;
+    for (int j = 0; j < 14; ++j) ok &= row[j] <= row[j + 1] ? 1 : 0;  // NaN fails
+    for (int j = 15; j < 45; ++j) ok &= isfinite(row[j]) ? 1 : 0;
+  } else if (tid < 24) {
+    const int gi = (tid - 8) >> 1, c = tid & 1;
+    const float* row = sT + gi * 48;
+    float* out = (float*)sP + 2 * gi * PST_PWL_LS + c;
+    float acc = row[45 + c];
+    out[0] = acc;
+    for (int j = 0; j < 15; ++j) {
+      acc = __fadd_rn(acc, __fmul_rn(row[15 + 15 * c + j], 1.0f));
+      out[2 * (j + 1)] = acc;
+    }
+  }
+  for (int k = tid; k < 8 * 15; k += blockDim.x)
+    sE[(k / 15) * PST_PWL_LS + k % 15] = sT[(k / 15) * 48 + k % 15];
+  return ok;
+}
+
+// The map of one value from the prefix tables, e8r the 8 block starts in
+// registers: equal under == to pst_pwl_gather_eval when the LUT passed the
+// check.
+__device__ __forceinline__ float pst_pwl_prefix_eval(
+    float v, const float* e8r, const float* sE, const float2* sP, float q0,
+    float zval, float ztrg) {
+  int idx = 0;
+#pragma unroll
+  for (int g = 1; g < 8; ++g) idx += v >= e8r[g] ? 1 : 0;
+  const float* e = sE + idx * PST_PWL_LS;
+  // t = #{j : v >= e[j]}, the selected prefix of the sorted fine edges
+  int t = v >= e[7] ? 8 : 0;
+  t += v >= e[t + 3] ? 4 : 0;
+  t += v >= e[t + 1] ? 2 : 0;
+  t += v >= e[t] ? 1 : 0;
+  const float2 acc = sP[idx * PST_PWL_LS + t];
+  const float o = __fadd_rn(__fadd_rn(q0, acc.x), __fmul_rn(v, acc.y));
+  return v == zval ? ztrg : o;
+}
+
+// K3's 15-term sum for a LUT that fails the prefix-table check; out of
+// line, so the prefix path's registers stay its own.
+static __device__ __noinline__ float pst_pwl_sum_eval(float v, const float* se8,
+                                                      const float* sT, float q0,
+                                                      float zval, float ztrg) {
+  return pst_pwl_gather_eval(v, se8, sT, q0, zval, ztrg);
+}
+
 // Rim value of a bounded L1 distance d (a small integer held in a float):
 // clip((R + 1 - d) / (r + 1), 0, 1), R = kr + r (K4 and the chain).
 __device__ __forceinline__ float pst_rim_of(float d, int R, int r) {

@@ -32,6 +32,12 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the H100's shared memory a block may opt into (227 KB) and its SMs; the
+# tile geometries are worked out against them on any machine, and a launch
+# asks the card for its own SM count (:func:`sm_count`)
+SMEM_LIMIT = 232_448
+H100_SMS = 132
+
 LAUNCHES = dict.fromkeys(
     (
         "resample_axis0", "resample_axis1", "warp", "pwl_gather",
@@ -46,8 +52,11 @@ _pll, _pi = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # field, idx0, frac, out, batch, rep, m, n, D, axis, stream
     "pst_resample": (_vp, _vp, _vp, _vp, _ll, _i, _i, _i, _i, _i, _vp),
-    # field, dy, disp_t, scratch, out, batch, m, n, D, cval, masked, stream
-    "pst_warp": (_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _f, _i, _vp),
+    # field, dy, disp_t, scratch (th 0 only), out, batch, m, n, D, cval,
+    # masked, th (0: the two-pass kernels), tw, cols, smem bytes, stream
+    "pst_warp": (_vp, _vp, _vp, _vp, _vp, _ll, _i, _i, _i, _f, _i, _i, _i, _i, _ll, _vp),
+    # smem bytes -> blocks per SM
+    "pst_warp_info": (_ll, _pi),
     # x, e8, T, scal, out, batch, N, stream
     "pst_pwl_gather": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
     # x, is_bytes, thr, strict, scratch (kr + r > 254 only), out, batch, m,
@@ -73,6 +82,14 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
+_sm_count = {}
+
+
+def sm_count(device):
+    """The SMs of CUDA ``device``."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_count[device]
 
 
 def reset_launches():

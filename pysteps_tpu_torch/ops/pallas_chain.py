@@ -39,6 +39,11 @@ L = 8  # edges per block
 CHAIN_MAX_FIELD_BYTES = 1_200_000
 # the largest kr + r stage 1 takes with the rim: its distances are bytes
 MAX_RIM = 254
+# stage 1's strip constants in csrc/chain.cu (CV_W, CV_TH, CV_WARPS, CV_RPW,
+# PST_PWL_LS of common.cuh), which :func:`_stage1_geometry` mirrors so that
+# the geometry is known without the card; on the card :func:`stage1_info`
+# checks it against the kernel's own
+CV_W, CV_TH, CV_WARPS, CV_RPW, PWL_LS = 64, 32, 8, 4, 17
 
 
 def supported(shape):
@@ -154,23 +159,55 @@ def stage1_matches(field, e8, T, q0, zval, ztrg, thr, dy, D, kr, r, do_rim=True)
     return C, rim, int(count.item())
 
 
+def _stage1_geometry(m, n, D, kr, r, do_rim):
+    """Stage 1's strip geometry (``cv_geom`` in ``csrc/chain.cu``, whose
+    layout this mirrors): ring rows, dynamic shared memory in bytes and the
+    window pixels matched for one member (each strip's window, every
+    row).  ``D`` as the kernel takes it (rounded)."""
+    R = int(kr) + int(r)
+    hc = R if do_rim else 0
+    nw = (CV_W + 2 * hc + 31) // 32
+    Dr = min(abs(int(D)), m)
+    ring = min(m, 2 * CV_TH + max(Dr + 1, hc) + Dr)
+    smem = 8 * PWL_LS * 8 + 8 * 48 * 4 + 8 * PWL_LS * 4 + 8 * 4 + ring * CV_W * 4
+    if do_rim:
+        smem += ((R + 2) * 4 + 15) // 16 * 16 + CV_WARPS * CV_RPW * nw * 4 + ring * CV_W
+    matches = sum(m * (min(n, j0 + CV_W + hc) - max(0, j0 - hc))
+                  for j0 in range(0, n, CV_W))
+    return ring, smem, matches
+
+
 def stage1_info(m, n, D, kr, r, do_rim=True, device=None):
     """What stage 1 asks of the card at these arguments (``D`` as the
-    caller gives it), worked out from the kernel's geometry and the
-    occupancy API, not measured: ``smem_bytes`` of dynamic shared memory,
-    ``ring_rows``, ``blocks_per_sm`` and ``matches_per_output``, the PWL
-    evaluations per output pixel when each window pixel is matched once
-    (:func:`stage1_matches` counts them).  Needs the card."""
-    info = (ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
-    with torch.cuda.device(device or torch.device("cuda")):
+    caller gives it), worked out from the kernel's geometry, not measured:
+    ``smem_bytes`` of dynamic shared memory, ``ring_rows``,
+    ``matches_per_output``, the PWL evaluations per output pixel when each
+    window pixel is matched once (:func:`stage1_matches` counts them), and
+    ``fits``, whether the shared memory is within ``_kernels.SMEM_LIMIT``, the
+    H100's 227 KB a block (a launch beyond it is refused).  On the card
+    (``device`` None or CUDA) also ``blocks_per_sm`` from the occupancy
+    API, and the kernel's own host code must give the same shared memory;
+    for a CPU ``device`` it is None.  ``kr + r`` above :data:`MAX_RIM`
+    with the rim raises ``ValueError``."""
+    if do_rim and not 0 <= int(kr) + int(r) <= MAX_RIM:
+        raise ValueError(f"stage 1 takes kr + r in [0, {MAX_RIM}] with the rim")
+    ring, smem, matches = _stage1_geometry(m, n, _round8(D), kr, r, do_rim)
+    info = {"smem_bytes": smem, "ring_rows": ring, "blocks_per_sm": None,
+            "matches_per_output": matches / (m * n), "fits": smem <= _kernels.SMEM_LIMIT}
+    device = torch.device(device or "cuda")
+    if device.type == "cpu":
+        return info
+    out = (ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong())
+    with torch.cuda.device(device):
         err = _kernels.library().pst_chain_v_info(
             int(m), int(n), _round8(D), int(kr), int(r), int(bool(do_rim)),
-            *(ctypes.byref(v) for v in info))
+            *(ctypes.byref(v) for v in out))
     if err != 0:
         raise RuntimeError(f"pst_chain_v_info: CUDA error {err}")
-    return {"smem_bytes": info[0].value, "ring_rows": info[1].value,
-            "blocks_per_sm": info[2].value,
-            "matches_per_output": info[3].value / (m * n)}
+    if (out[0].value, out[1].value, out[3].value) != (smem, ring, matches):
+        raise AssertionError("stage 1's geometry differs from the kernel's")
+    info["blocks_per_sm"] = out[2].value
+    return info
 
 
 def chain_horiz(C, disp_t, D, cval):

@@ -196,8 +196,8 @@ def _pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg):
 
 
 def _pwl_prefix_ok(T):
-    """(B,) bool: the members whose gather LUT ``T`` (B, 8, 48) chain
-    stage 1 evaluates from prefix tables: every row's 15 fine edges
+    """(B,) bool: the members whose gather LUT ``T`` (B, 8, 48) K3 and
+    chain stage 1 evaluate from prefix tables: every row's 15 fine edges
     nondecreasing and free of NaN, every d0/d1 term finite.  Then the
     terms a pixel selects are a prefix and the terms after it add +-0."""
     edges = T[:, :, :15]
@@ -217,7 +217,8 @@ def _pwl_prefix_tables(T):
 
 
 def _pwl_prefix_acc(x, e8, T):
-    """The two sums of chain stage 1's PWL evaluation on (B, N): the block
+    """The two sums of the prefix-table PWL evaluation that K3 and chain
+    stage 1 share (``common.cuh``) on (B, N): the block
     index, a 4-step search for t = #{j : x >= fine edge j} among the
     block's sorted fine edges, and the two running sums after t terms."""
     B = x.shape[0]
@@ -235,7 +236,8 @@ def _pwl_prefix_acc(x, e8, T):
 
 
 def _pwl_apply_prefix_plain(x, e8, T, q0, zval, ztrg):
-    """Plain model of chain stage 1's PWL evaluation on (B, N) (the sums
+    """Plain model of the PWL evaluation of K3 and chain stage 1 on (B, N)
+    (the sums
     of :func:`_pwl_prefix_acc`, then K3's last two operations).  Equal
     under == to :func:`_pwl_apply_gather_plain` for the members that pass
     :func:`_pwl_prefix_ok`; the others take that 15-term sum, as the kernel
@@ -254,7 +256,9 @@ def pwl_apply_gather(x, e8, T, q0, zval, ztrg):
     """K3 (replaces ``pwl_apply_gather``): the block-gathered PWL map of
     ``x`` (B, N) with the dry override (``x == zval`` -> ``ztrg``); ``e8``
     (B, 8), ``T`` (B, 8, 48) from :func:`pack_gather_lut`, ``q0``/``zval``/
-    ``ztrg`` (B,).  Works for any N."""
+    ``ztrg`` (B,).  Works for any N.  The kernel evaluates the map from
+    per-member prefix tables (:func:`_pwl_apply_prefix_plain` is its plain
+    model), equal to the 15-term sum for every LUT."""
     if not x.is_cuda:
         return _pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg)
     B, N = x.shape

@@ -7,7 +7,14 @@ Each wrapper launches its CUDA kernel (``csrc/resample.cu``,
 ``csrc/warp.cu``) for a CUDA tensor and runs the plain version for a CPU
 tensor; there is no other fallback.  Fields carry a leading batch axis
 (members, or members x channels) so one launch serves the ensemble.
+
+K2 is one launch of a tile kernel that keeps the vertical stage in shared
+memory (:func:`warp_geometry` sizes its tiles); a shape whose tile cannot
+hold in a block's shared memory takes the two-pass kernels through a
+scratch plane (:func:`warp_route`).
 """
+
+import ctypes
 
 import torch
 
@@ -103,6 +110,94 @@ def _warp_fused_plain(field, dy, disp_t, D, cval, masked=True):
     return _warp_h_plain(_warp_v_plain(field, dy, D), disp_t, D, cval, masked)
 
 
+WARP_TH = (16, 8, 4, 2, 1)  # tile rows, largest first
+WARP_CH = 64  # WP_CH of csrc/warp.cu: output columns of a horizontal step
+WARP_TW = 256  # output columns of a column tile
+WARP_STRIP_BYTES = 64 * 1024  # a strip's shared memory, at most: 3 blocks an SM
+
+
+def _warp_smem(th, cols):
+    """The tile kernel's shared memory: ``th`` rows of ``cols`` floats of
+    the vertical stage, then two buffers of the two transposed planes,
+    WARP_CH rows of th + 1 floats each (``pst_warp`` refuses less)."""
+    return th * cols * 4 + 2 * 2 * WARP_CH * (th + 1) * 4
+
+
+def warp_tile(B, m, n, D, th, tw):
+    """The tile kernel's geometry at ``th`` rows by ``tw`` output columns
+    for a (B, m, n) call with bound ``D`` (rounded up to a multiple of 8
+    here): ``cols`` of the vertical stage a block holds (the tile and the
+    D columns a tap reaches on each side, clipped to the field),
+    ``smem_bytes`` and ``blocks``.  ``pst_warp`` launches what this gives
+    and refuses a geometry that does not hold the tile."""
+    D = _round8(D)
+    tw = min(n, tw)
+    cols = n if tw >= n else min(n, tw + 2 * min(D, n) + 1)
+    return {"route": "tile", "th": th, "tw": tw, "cols": cols,
+            "smem_bytes": _warp_smem(th, cols), "blocks": B * -(-m // th) * -(-n // tw)}
+
+
+def warp_geometry(B, m, n, D, sms=_kernels.H100_SMS):
+    """K2's tile geometry for a (B, m, n) call with displacement bound
+    ``D``, computed, not measured: ``th`` tile rows, the largest of
+    :data:`WARP_TH` that still gives 2 blocks an SM of a card with ``sms``
+    SMs (else the smallest that fits); ``tw`` output columns, the whole row
+    when th rows of n columns fit :data:`WARP_STRIP_BYTES`, else
+    :data:`WARP_TW`; the rest as :func:`warp_tile` gives it.  A tile must
+    fit ``_kernels.SMEM_LIMIT``; where none does, the route is
+    ``"two_pass"`` and the other keys are None."""
+    best = None
+    for th in WARP_TH:
+        tw = n if _warp_smem(th, n) <= WARP_STRIP_BYTES else WARP_TW
+        geometry = warp_tile(B, m, n, D, th, tw)
+        if geometry["smem_bytes"] > _kernels.SMEM_LIMIT:
+            continue
+        best = geometry
+        if geometry["blocks"] >= 2 * sms:
+            break
+    return best or {"route": "two_pass", "th": None, "tw": None, "cols": None,
+                    "smem_bytes": None, "blocks": None}
+
+
+def warp_route(m, n, D):
+    """Which kernels K2 launches for an (m, n) field and bound ``D``:
+    ``"tile"`` (one launch, no scratch) or ``"two_pass"`` (two launches
+    through a scratch plane), for any batch."""
+    return warp_geometry(1, m, n, D)["route"]
+
+
+def warp_info(geometry, device=None):
+    """The blocks of the tile kernel that fit on one SM of the card at
+    ``geometry``'s shared memory (the occupancy API; computed, not
+    measured)."""
+    bps = ctypes.c_int()
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = _kernels.library().pst_warp_info(
+            int(geometry["smem_bytes"]), ctypes.byref(bps))
+    if err != 0:
+        raise RuntimeError(f"pst_warp_info: CUDA error {err}")
+    return {"blocks_per_sm": bps.value}
+
+
+def _warp_launch(field, dy, disp_t, D, cval, masked, geometry):
+    """Launch K2 on checked CUDA inputs (D rounded) at ``geometry`` (from
+    :func:`warp_geometry` or :func:`warp_tile`): the tile kernel, or the
+    two-pass kernels and their scratch plane."""
+    B, m, n = field.shape
+    out = torch.empty_like(field)
+    tile = geometry["route"] == "tile"
+    scratch = None if tile else torch.empty_like(field)
+    _kernels.launch(
+        "pst_warp", field.device, field.data_ptr(), dy.data_ptr(),
+        disp_t.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        out.data_ptr(), B, m, n, D, float(cval), int(bool(masked)),
+        *((geometry["th"], geometry["tw"], geometry["cols"], geometry["smem_bytes"])
+          if tile else (0, 0, 0, 0)),
+    )
+    _kernels.LAUNCHES["warp"] += 1
+    return out
+
+
 def warp_fused(field, dy, disp_t, D, cval, masked=True):
     """K2 (replaces ``warp_fused_pallas``): separable bilinear backward
     warp of ``field`` (B, m, n) by the vertical displacement ``dy``
@@ -118,12 +213,5 @@ def warp_fused(field, dy, disp_t, D, cval, masked=True):
     _kernels.check_inputs(
         "warp_fused", (field, dy, disp_t), (torch.float32,) * 3
     )
-    scratch = torch.empty_like(field)
-    out = torch.empty_like(field)
-    _kernels.launch(
-        "pst_warp", field.device, field.data_ptr(), dy.data_ptr(),
-        disp_t.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, m, n, D,
-        float(cval), int(bool(masked)),
-    )
-    _kernels.LAUNCHES["warp"] += 1
-    return out
+    geometry = warp_geometry(B, m, n, D, _kernels.sm_count(field.device))
+    return _warp_launch(field, dy, disp_t, D, cval, masked, geometry)

@@ -70,7 +70,7 @@ def main():
                     help="add the device ms of the operators on the LUT build's field")
     args = ap.parse_args()
     if args.no_chain:
-        steps_mod._chain_available = lambda *a: False
+        steps_mod._chain_available = lambda *a, **k: False
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_steps: no CUDA device")
     smi = subprocess.run(

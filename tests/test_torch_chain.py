@@ -198,3 +198,28 @@ def test_gates_agree_with_jax(monkeypatch, shape):
                 assert tsteps._chain_available(pm, order, md, shape, True) == ref
                 assert not tsteps._chain_available(pm, order, md, shape, False)
     jax.clear_caches()
+
+
+def test_stage1_shared_memory_limit():
+    """Where stage 1's ring outgrows the H100's 227 KB a block: on a field
+    taller than the ring (1000 rows) with the STEPS rim, D = 320 fits
+    (a ring of 705 rows, 229,248 B) and D = 328 does not (721 rows,
+    234,368 B), as the card's launch finds; a field no taller than the ring
+    fits at any D; the 512^2 main path takes 55,168 B."""
+    from pysteps_tpu_torch.ops import _kernels
+
+    fits = tpc.stage1_info(1000, 64, 320, 2, 10, device="cpu")
+    over = tpc.stage1_info(1000, 64, 328, 2, 10, device="cpu")
+    assert (fits["ring_rows"], fits["smem_bytes"], fits["fits"]) == (705, 229_248, True)
+    assert (over["ring_rows"], over["smem_bytes"], over["fits"]) == (721, 234_368, False)
+    assert fits["smem_bytes"] <= _kernels.SMEM_LIMIT < over["smem_bytes"]
+    assert tpc.stage1_info(1000, 64, 321, 2, 10, device="cpu") == over  # D rounds to 328
+    short = tpc.stage1_info(512, 512, 4000, 2, 10, device="cpu")
+    assert short["ring_rows"] == 512 and short["fits"]
+    main = tpc.stage1_info(512, 512, 48, 2, 10, device="cpu")
+    assert (main["ring_rows"], main["smem_bytes"], main["blocks_per_sm"]) == (161, 55_168, None)
+    assert main["matches_per_output"] == (2 * 76 + 6 * 88) / 512
+    assert tpc.stage1_info(512, 512, 48, 2, 10, do_rim=False,
+                                    device="cpu")["matches_per_output"] == 1
+    with pytest.raises(ValueError):
+        tpc.stage1_info(512, 512, 48, 4, tpc.MAX_RIM - 3, device="cpu")

@@ -120,7 +120,87 @@ def test_k2_warp(dev, masked, D):
     assert _kernels.LAUNCHES["warp"] == before + 1
     ref = pallas_warp._warp_fused_plain(field, dy, disp_t, -(-D // 8) * 8, float("nan"), masked)
     assert masked == bool(torch.isnan(ref).any())
-    _close(out, ref, 1e-5 * float(field.max() - field.min()))
+    _close(out, ref, 0.0)
+
+
+def _k2_inputs(gen, dev, shape, amp, specials=True):
+    """A field and its displacement planes; with ``specials`` NaN and
+    +-inf pixels in the field and in both displacement planes."""
+    B, m, n = shape
+    field = torch.randn(shape, generator=gen, device=dev) * 5.0 + 10.0
+    disp = _disp(gen, dev, B, m, n, amp)
+    if specials:
+        for t in (field, disp):
+            flat = t.view(-1)
+            idx = torch.randint(0, flat.numel(), (3 * max(1, flat.numel() // 300),),
+                                generator=gen, device=dev)
+            vals = torch.tensor([float("nan"), float("inf"), float("-inf")], device=dev)
+            flat[idx] = vals.repeat(len(idx) // 3)
+    return field, disp[:, 1].contiguous(), disp.transpose(-1, -2).contiguous()
+
+
+@pytest.mark.parametrize("geometry", [
+    (16, None), (8, None), (1, None),  # strips of 16, 8 and 1 rows
+    (16, 16), (4, 64), (2, 7),  # column tiles: halo clipped at both edges
+])
+@pytest.mark.parametrize("D", [8, 13, 48, 200])
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 70, 130)])
+def test_k2_tiles(dev, shape, D, geometry):
+    """K2's tile kernel at forced geometries (rows and columns no multiple
+    of the tile, D = 200 wider than both fields), with NaN and +-inf in the
+    field and the displacement, both ``masked`` values: equal to the plain
+    version, one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(D + shape[2] + geometry[0])
+    field, dy, disp_t = _k2_inputs(gen, dev, shape, 1.3 * D)
+    th, tw = geometry
+    D8 = pallas_warp._round8(D)
+    geo = pallas_warp.warp_tile(*shape, D8, th, tw or shape[2])
+    for masked in (True, False):
+        before = _kernels.LAUNCHES["warp"]
+        out = pallas_warp._warp_launch(field, dy, disp_t, D8, float("nan"), masked, geo)
+        assert _kernels.LAUNCHES["warp"] == before + 1
+        ref = pallas_warp._warp_fused_plain(field, dy, disp_t, D8, float("nan"), masked)
+        _close(out, ref, 0.0)
+
+
+@pytest.mark.parametrize("shape,D", [
+    ((32, 1024, 1024), 48),  # path B
+    ((96, 320, 320), 48),  # path C
+    ((1, 2, 57000), 30000),  # the widest tile: one row of 57000 columns
+    ((1, 2, 60000), 30000),  # no tile fits: the two-pass kernels
+    ((3, 20, 1500), 2000),  # column tiles whose halo is the whole row
+])
+def test_k2_routes(dev, shape, D):
+    """``warp_fused`` at the geometry it computes, both routes; the tile
+    kernel refuses the geometry with a column or 4 bytes of shared memory
+    less; equal to the plain version, one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(shape[2])
+    field, dy, disp_t = _k2_inputs(gen, dev, shape, 60.0 if D < 100 else 1.2 * D)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = pallas_warp.warp_geometry(*shape, D, sms)
+    assert geo["route"] == pallas_warp.warp_route(shape[1], shape[2], D)
+    if geo["route"] == "tile":
+        assert pallas_warp.warp_info(geo)["blocks_per_sm"] >= 1
+        for short in ({"cols": geo["cols"] - 1}, {"smem_bytes": geo["smem_bytes"] - 4}):
+            with pytest.raises(RuntimeError, match="pst_warp"):
+                pallas_warp._warp_launch(field, dy, disp_t, pallas_warp._round8(D),
+                                         float("nan"), True, {**geo, **short})
+    for masked in (True, False):
+        before = _kernels.LAUNCHES["warp"]
+        out = pallas_warp.warp_fused(field, dy, disp_t, D, float("nan"), masked)
+        assert _kernels.LAUNCHES["warp"] == before + 1
+        ref = pallas_warp._warp_fused_plain(
+            field, dy, disp_t, pallas_warp._round8(D), float("nan"), masked)
+        _close(out, ref, 0.0)
+
+
+def test_k2_geometry_on_the_paths(dev):
+    """Tiles of 16 rows on paths B (256 columns) and C (strips), 4 blocks
+    an SM (the kernel's register budget)."""
+    for shape, tw in (((32, 1024, 1024), 256), ((96, 320, 320), 320)):
+        geo = pallas_warp.warp_geometry(*shape, 48)
+        assert (geo["th"], geo["tw"]) == (16, tw)
+        assert pallas_warp.warp_info(geo)["blocks_per_sm"] == 4
 
 
 def _pwl_case(gen, dev, B, N):
@@ -150,7 +230,48 @@ def test_k3_pwl_gather(dev, N):
     out = pallas_histmatch.pwl_apply_gather(x, e8, T, q0, zval, ztrg)
     assert _kernels.LAUNCHES["pwl_gather"] == before + 1
     ref = pallas_histmatch._pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg)
-    _close(out, ref, 1e-5 * float(ref.abs().max()))
+    _close(out, ref, 0.0)
+
+
+def _spoil_one(T):
+    """The LUT with member 1's row 5 shuffled and member 2's row 3 given a
+    NaN fine edge: both fail the prefix-table check."""
+    T = T.clone()
+    T[1, 5, :15] = T[1, 5, :15].flip(0)
+    T[2, 3, 7] = float("nan")
+    return T
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("N", [1, 3, 5, 4096 * 256 + 1])
+def test_k3_alignment_and_failing_luts(dev, N, offset):
+    """K3 on inputs that start ``offset`` floats past a 16-byte boundary
+    (the output is a fresh allocation: offset 0 vectorises, the others go
+    scalar), N below, at and above a vector and a block, members whose
+    LUT fails the prefix-table check, NaN and ``x == zval`` pixels: equal
+    to the plain version, one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(N + offset)
+    B = 4
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, N)
+    e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+    T = _spoil_one(T)
+    ok = pallas_histmatch._pwl_prefix_ok(T).tolist()
+    assert ok == [True, False, False, True]
+    x = x.clone()
+    x[:, 0] = zval
+    if N > 2:
+        x[:, 2] = float("nan")
+    flat = torch.empty(B * N + offset, device=dev)
+    xs = flat[offset:].view(B, N)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 4 * offset
+    ztrg = ztrg.expand(B)
+    before = _kernels.LAUNCHES["pwl_gather"]
+    out = pallas_histmatch.pwl_apply_gather(xs, e8, T, q0, zval, ztrg)
+    assert _kernels.LAUNCHES["pwl_gather"] == before + 1
+    ref = pallas_histmatch._pwl_apply_gather_plain(x, e8, T, q0, zval, ztrg)
+    _close(out, ref, 0.0)
+    assert bool((out[:, 0] == ztrg).all())
 
 
 @pytest.mark.parametrize("N", [1, 1000, 200 * 128])
@@ -322,6 +443,14 @@ def test_chain_stage1_geometry_and_limits(dev):
         pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 400, 2, 10)
     with pytest.raises(RuntimeError):
         pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 100, 200)
+    # the shared-memory limit falls where stage1_info computes it
+    fits = pallas_chain.stage1_info(m, n, 320, 2, 10, device="cpu")
+    over = pallas_chain.stage1_info(m, n, 328, 2, 10, device="cpu")
+    assert fits["fits"] and not over["fits"]
+    assert pallas_chain.stage1_info(m, n, 320, 2, 10)["smem_bytes"] == fits["smem_bytes"]
+    pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 320, 2, 10)
+    with pytest.raises(RuntimeError):
+        pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 328, 2, 10)
     # the rim limit falls at MAX_RIM, as the STEPS gate assumes
     pallas_chain.chain_match_vert_rim(f, e8, T, q, q, q, 0.0, f, 8, 4, pallas_chain.MAX_RIM - 4)
     with pytest.raises(RuntimeError):
