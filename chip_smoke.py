@@ -22,9 +22,10 @@ Phases, each printing JSON lines:
    as ``ms_eager``.  The chain and the CDF counts run on the inputs of
    path A's last lead, recorded from one forecast with each lead's
    largest displacements;
-   the chain is timed beside K3 -> K4 -> K2 on those inputs; stage 1
-   and K3 also on a LUT that fails their prefix-table check (the exact
-   15-term fallback, ``ms_slow_lut``); stage 1's matches per output are
+   the chain is timed beside K3 -> K4 -> K2 on those inputs; stage 1,
+   K3 and the hierarchical and flat maps also on a LUT that fails their
+   prefix-table check (the exact full sum out of line, ``ms_slow_lut``,
+   equal to the plain version under ==); stage 1's matches per output are
    counted on the card by its counting instantiation and held against its
    geometry, whose shared memory, ring and blocks per SM (computed, not
    measured) print on a line of their own, as K2's route and tile
@@ -266,6 +267,15 @@ def _record(name, source, replaces, counter, out, ref, tol, kernel, plain_ms,
     return rec
 
 
+def check_slow(name, kernel, plain, args):
+    """Raise unless ``kernel(*args)`` on a LUT that fails its prefix-table
+    check equals ``plain(*args)`` under == (NaN where NaN)."""
+    out, ref = kernel(*args), plain(*args)
+    if not (torch.equal(torch.isnan(out), torch.isnan(ref))
+            and torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))):
+        raise AssertionError(f"{name}: the fallback for a failing LUT differs from the plain version")
+
+
 def smooth_displacements(gen, batch, size, amp):
     """Smooth random (batch, 2, size, size) displacements of at most 1.6
     amp px, drawn on ``gen``'s card."""
@@ -484,10 +494,8 @@ def phase_kernels(peaks, leads, captured, report):
     T_b_slow = T_b.clone()
     T_b_slow[:, 7, 14] = float("nan")
     slow_args = k3_args[:2] + (T_b_slow,) + k3_args[3:]
-    err_slow = float((pallas_histmatch.pwl_apply_gather(*slow_args)
-                      - pallas_histmatch._pwl_apply_gather_plain(*slow_args)).abs().max())
-    if err_slow != 0.0:
-        raise AssertionError(f"K3: the 15-term fallback differs from the plain version by {err_slow}")
+    check_slow("K3", pallas_histmatch.pwl_apply_gather, pallas_histmatch._pwl_apply_gather_plain,
+               slow_args)
     k3 = _record(
         "K3_pwl_gather", "pysteps_tpu_torch/csrc/pwl.cu",
         "pysteps_tpu/ops/pallas_histmatch.py:199", "pwl_gather",
@@ -509,20 +517,30 @@ def phase_kernels(peaks, leads, captured, report):
     e16, M3 = pallas_chain.pack_hier_lut(edges_c, d0_c, d1_c)
     hier_args = (xc, e16, M3, q0_c, zval_c, ztrg_c.expand(E_c))
     ref = pallas_histmatch._pwl_apply_hier_plain(*hier_args)
+    if not bool(pallas_histmatch._pwl_hier_prefix_ok(e16, M3).all()):
+        raise AssertionError("pwl_hier: path C's LUTs fail the prefix-table check")
+    # the same LUTs with the last fine edge of each member's top block made
+    # NaN: the check fails, so the kernel takes the 7-term sum
+    M3_slow = M3.clone()
+    M3_slow[:, 6, 15] = nan
+    hier_slow = (xc, e16, M3_slow) + hier_args[3:]
+    check_slow("pwl_hier", pallas_histmatch.pwl_apply_hier, pallas_histmatch._pwl_apply_hier_plain,
+               hier_slow)
     hier = _record(
         "pwl_hier", "pysteps_tpu_torch/csrc/pwl_variants.cu",
         "pysteps_tpu/ops/pallas_histmatch.py:284", "pwl_hier",
-        pallas_histmatch.pwl_apply_hier(*hier_args), ref,
-        1e-5 * float(ref.abs().max()),
+        # the prefix tables' sums equal the 7-term sums under ==
+        pallas_histmatch.pwl_apply_hier(*hier_args), ref, 0.0,
         lambda: pallas_histmatch.pwl_apply_hier(*hier_args),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_hier_plain(*hier_args), 3),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * xc.numel() + e16.numel() + M3.numel() + 3 * E_c),
         pwl_ops * xc.numel(), peaks, "C", shape=list(xc.shape),
+        ms_slow_lut=steady_ms(lambda: pallas_histmatch.pwl_apply_hier(*hier_slow)),
         ptxas=ptxas("pst_pwl_hier_kernel"),
     )
     k2_c, k4_c = k2_k4(E_c, side_c, xc, "C")
-    del xc, hier_args, ref
+    del xc, hier_args, ref, hier_slow
     at_c = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "ms_eager")
     k2_b["at_C"] = {k: k2_c[k] for k in at_c}
@@ -552,20 +570,29 @@ def phase_kernels(peaks, leads, captured, report):
     w = pallas_histmatch.flat_weights(d0, d1)
     edges_f = edges.contiguous()
     ref = pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0)
+    if not bool(pallas_histmatch._pwl_flat_prefix_ok(edges_f, w).all()):
+        raise AssertionError("pwl_flat: path D's LUTs fail the prefix-table check")
+    # the last edge of each member made NaN: the kernel takes the 128-term sum
+    edges_slow = edges_f.clone()
+    edges_slow[:, -1] = nan
+    flat_slow = (x, edges_slow, w, q0)
+    check_slow("pwl_flat", pallas_histmatch.pwl_apply, pallas_histmatch._pwl_apply_plain,
+               flat_slow)
     recs.append(_record(
         "pwl_flat", "pysteps_tpu_torch/csrc/pwl_variants.cu",
         "pysteps_tpu/ops/pallas_histmatch.py:258", "pwl_flat",
-        pallas_histmatch.pwl_apply(x, edges_f, w, q0), ref,
-        1e-5 * float(ref.abs().max()),
+        # the prefix table's sums equal the 128-term sums under ==
+        pallas_histmatch.pwl_apply(x, edges_f, w, q0), ref, 0.0,
         lambda: pallas_histmatch.pwl_apply(x, edges_f, w, q0),
         cuda_ms(lambda: pallas_histmatch._pwl_apply_plain(x, edges_f, w, q0), 2),
         None, "none: no PyTorch call computes a per-member piecewise-linear map",
         4 * (2 * x.numel() + edges_f.numel() + w.numel() + E),
         # no dry override in this map
         (search_ops + 2) * x.numel(), peaks, "D", shape=list(x.shape),
+        ms_slow_lut=steady_ms(lambda: pallas_histmatch.pwl_apply(*flat_slow)),
         ptxas=ptxas("pst_pwl_flat_kernel"),
     ))
-    del x, ref
+    del x, ref, flat_slow
 
     # the CDF counts on path E's inputs: path A's last lead and its edges
     xe = captured["field"].reshape(E, -1)

@@ -191,6 +191,86 @@ static __device__ __noinline__ float pst_pwl_sum_eval(float v, const float* se8,
   return pst_pwl_gather_eval(v, se8, sT, q0, zval, ztrg);
 }
 
+// The streaming loop of the three PWL maps (K3 in pwl.cu, the hierarchical
+// and flat maps in pwl_variants.cu).  A block maps the pixels
+// [blockIdx.x * pix, + pix) of one member, `pix` a multiple of 4, through
+// `map`: a functor whose operator()(float) maps one value.  Pixels stream
+// as 16-byte loads and stores, kVec vectors of a thread in flight, when the
+// member's input and output rows share their alignment modulo 16 bytes; the
+// up to 3 pixels before the first aligned vector (block 0) and after the
+// last (the last block) go scalar.  Otherwise (an input view off its
+// alignment against the fresh output) the member goes scalar.  Any N.
+// pst_map4 maps a vector; a map that does better on 4 values at once (the
+// flat map's fallback) overloads it.
+template <class Map>
+__device__ __forceinline__ float4 pst_map4(const Map& map, float4 a) {
+  float4 o;
+  o.x = map(a.x);
+  o.y = map(a.y);
+  o.z = map(a.z);
+  o.w = map(a.w);
+  return o;
+}
+
+template <int kThreads, class Map>
+__device__ __forceinline__ void pst_stream_scalar(const float* xb, float* ob,
+                                                  long long p0, long long p1,
+                                                  const Map& map) {
+  for (long long p = p0 + threadIdx.x; p < p1; p += kThreads) ob[p] = map(xb[p]);
+}
+
+#define PST_STREAM_THREADS 256  // threads of a block of the three PWL maps
+#define PST_STREAM_VEC 4        // 16-byte vectors of a thread in flight
+
+template <int kThreads, int kVec, class Map>
+__device__ __forceinline__ void pst_stream(const float* xb, float* ob,
+                                           long long N, long long pix,
+                                           const Map& map) {
+  const long long p0 = (long long)blockIdx.x * pix;
+  const long long p1 = p0 + pix < N ? p0 + pix : N;
+  const uintptr_t xa = (uintptr_t)xb, oa = (uintptr_t)ob;
+  if (((xa ^ oa) & 15) != 0) {
+    pst_stream_scalar<kThreads>(xb, ob, p0, p1, map);
+    return;
+  }
+  // the member's aligned vectors [head, head + 4 nv); pix is a multiple
+  // of 4, so each block's vectors are whole
+  long long head = (long long)((16 - (xa & 15)) & 15) / 4;
+  if (head > N) head = N;
+  const long long nv = (N - head) / 4, tail = head + 4 * nv;
+  if (blockIdx.x == 0) pst_stream_scalar<kThreads>(xb, ob, 0, head, map);
+  if (blockIdx.x == gridDim.x - 1) pst_stream_scalar<kThreads>(xb, ob, tail, N, map);
+  // vectors whose first pixel, counted from head, lies in [p0, p1)
+  const long long v0 = p0 / 4;
+  const long long v1 = (p1 / 4 < nv) ? p1 / 4 : nv;
+  const float4* x4 = (const float4*)(xb + head);
+  float4* o4 = (float4*)(ob + head);
+  for (long long v = v0 + threadIdx.x; v < v1; v += kVec * kThreads) {
+    float4 a[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const long long w = v + k * kThreads;
+      if (w < v1) a[k] = __ldg(x4 + w);
+    }
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const long long w = v + k * kThreads;
+      if (w < v1) o4[w] = pst_map4(map, a[k]);
+    }
+  }
+}
+
+// Node i (1 .. 2^L - 1) of the implicit search tree (level order, children
+// 2i and 2i + 1) over the sorted values e[1 .. 2^L - 1]: the index into e of
+// its value.  After L steps i = 2i + (v >= node i), i - 2^L counts the
+// values at or below v when e is nondecreasing and free of NaN.  A level of
+// at most 32 nodes lies in distinct banks, so a warp reads it with no
+// conflict however its lanes descend.
+__device__ __forceinline__ int pst_tree_src(int i, int L) {
+  const int d = 31 - __clz(i);
+  return (2 * (i - (1 << d)) + 1) << (L - 1 - d);
+}
+
 // Rim value of a bounded L1 distance d (a small integer held in a float):
 // clip((R + 1 - d) / (r + 1), 0, 1), R = kr + r (K4 and the chain).
 __device__ __forceinline__ float pst_rim_of(float d, int R, int r) {

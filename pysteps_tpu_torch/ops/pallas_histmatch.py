@@ -284,7 +284,7 @@ def _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg):
     g = torch.zeros(x.shape, dtype=torch.long, device=x.device)
     for k in range(16):
         g += (x >= e16[:, k : k + 1]).long()
-    sel = (M3[:, 0:24] + M3[:, 24:48]) + M3[:, 48:72]  # (B, 24, 16)
+    sel = _hier_table(M3)  # (B, 24, 16)
     table = torch.cat([torch.zeros_like(sel[:, :, :1]), sel], dim=2)
 
     def col(c):
@@ -300,11 +300,107 @@ def _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg):
     return torch.where(x == zval.reshape(B, 1), ztrg.reshape(B, 1).expand_as(out), out)
 
 
+def _tree_src(levels):
+    """The index into ``e`` of each node 1 .. 2^L - 1 of the implicit
+    search tree over the sorted values ``e[1 .. 2^L - 1]`` that the
+    hierarchical and flat kernels keep (``common.cuh::pst_tree_src``; slot 0
+    is unused and points at ``e[0]``): node i at depth d, position p within
+    its level, holds ``e[(2p + 1) << (L - 1 - d)]``."""
+    src = [0]
+    for i in range(1, 1 << levels):
+        d = i.bit_length() - 1
+        src.append((2 * (i - (1 << d)) + 1) << (levels - 1 - d))
+    return src
+
+
+def _tree_count(x, e, levels):
+    """#{j : x >= e[:, j]} for ``x`` (B, N) and ``e`` (B, 2^L), each row
+    nondecreasing and free of NaN, the kernels' way: L steps down the tree
+    over ``e[:, 1:]``, then one compare with ``e[:, 0]``."""
+    tree = e[:, _tree_src(levels)]
+    i = torch.ones(x.shape, dtype=torch.long, device=x.device)
+    for _ in range(levels):
+        i = 2 * i + (x >= torch.gather(tree, 1, i)).long()
+    return i - (1 << levels) + (x >= e[:, :1]).long()
+
+
+def _hier_table(M3):
+    """The (B, 24, 16) f32 table ``(a + b) + c`` of ``M3``'s three splits."""
+    return (M3[:, 0:24] + M3[:, 24:48]) + M3[:, 48:72]
+
+
+def _pwl_hier_prefix_ok(e16, M3):
+    """(B,) bool: the members whose hierarchical LUT the kernel evaluates
+    from prefix tables: each block's 7 fine edges nondecreasing and free of
+    NaN, every d0/d1 term finite, and the 16 block starts nondecreasing and
+    free of NaN (the kernel finds the block by a search)."""
+    sel = _hier_table(M3)
+    fine = sel[:, 0:7]
+    ordered = (fine[:, 1:] >= fine[:, :-1]).all(dim=1).all(dim=1)
+    finite = torch.isfinite(sel[:, 7:21]).all(dim=1).all(dim=1)
+    return ordered & finite & (e16[:, 1:] >= e16[:, :-1]).all(dim=1)
+
+
+def _pwl_hier_prefix_tables(M3):
+    """The (B, 17, 8) tables (pb0 + S0[t], pb1 + S1[t]): S the running sums
+    from +0 of a block's first t d0 (d1) terms, added left to right as the
+    7-term sum adds them; row 0 (no block) zeros, row g + 1 block g."""
+    sel = _hier_table(M3)
+    sel = torch.cat([torch.zeros_like(sel[:, :, :1]), sel], dim=2)  # (B, 24, 17)
+    out = []
+    for c in (0, 1):
+        acc = torch.zeros_like(sel[:, 0])
+        steps = [sel[:, 21 + c] + acc]
+        for f in range(7):
+            acc = acc + sel[:, 7 + 7 * c + f] * 1.0
+            steps.append(sel[:, 21 + c] + acc)
+        out.append(torch.stack(steps, dim=2))
+    return out[0], out[1]
+
+
+def _pwl_hier_prefix_acc(x, e16, M3):
+    """The hierarchical kernel's table entries on (B, N): the block g from
+    the tree over the block starts, a 3-step search for t among block g's
+    sorted fine edges, and row g's (pb0 + S0[t], pb1 + S1[t])."""
+    B = x.shape[0]
+    g = _tree_count(x, e16, 4)
+    sel = _hier_table(M3)
+    fine = torch.cat([torch.zeros_like(sel[:, :7, :1]), sel[:, :7]], dim=2)
+    fine = fine.transpose(1, 2).reshape(B, -1)  # (B, 17 * 7)
+    t = torch.zeros_like(g)
+    for step, off in ((4, 3), (2, 1), (1, 0)):
+        e = torch.gather(fine, 1, g * 7 + t + off)
+        t += step * (x >= e).long()
+    A0, A1 = _pwl_hier_prefix_tables(M3)
+    k = g * 8 + t
+    return torch.gather(A0.reshape(B, -1), 1, k), torch.gather(A1.reshape(B, -1), 1, k)
+
+
+def _pwl_apply_hier_prefix_plain(x, e16, M3, q0, zval, ztrg):
+    """Plain model of the hierarchical kernel on (B, N): the entries of
+    :func:`_pwl_hier_prefix_acc`, ``q0 + (A0 + x * A1)`` and the dry
+    override.  Equal under == to :func:`_pwl_apply_hier_plain` for the
+    members that pass :func:`_pwl_hier_prefix_ok`; the others take that
+    7-term sum, as the kernel does."""
+    B = x.shape[0]
+    a0, a1 = _pwl_hier_prefix_acc(x, e16, M3)
+    out = q0.reshape(B, 1) + (a0 + x * a1)
+    out = torch.where(x == zval.reshape(B, 1), ztrg.reshape(B, 1).expand_as(out), out)
+    ok = _pwl_hier_prefix_ok(e16, M3)
+    if bool(ok.all()):
+        return out
+    slow = _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg)
+    return torch.where(ok[:, None], out, slow)
+
+
 def pwl_apply_hier(x, e16, M3, q0, zval, ztrg):
     """Hierarchical PWL map (replaces ``pwl_apply_hier``) of ``x`` (B, N)
     with the dry override; ``e16`` (B, 16), ``M3`` (B, 72, 16) from
     ``pallas_chain.pack_hier_lut``, ``q0``/``zval``/``ztrg`` (B,).  A pixel
-    below ``e16[:, 0]`` maps to ``q0``.  Works for any N."""
+    below ``e16[:, 0]`` maps to ``q0``.  Works for any N.  The kernel
+    evaluates the map from per-member prefix tables
+    (:func:`_pwl_apply_hier_prefix_plain` is its plain model), equal to the
+    7-term sum for every LUT."""
     if not x.is_cuda:
         return _pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg)
     B, N = x.shape
@@ -325,9 +421,9 @@ def pwl_apply_hier(x, e16, M3, q0, zval, ztrg):
 
 def _pwl_apply_plain(x, edges, w, q0):
     """Plain version of the flat kernel on (B, N): the 128 terms summed in
-    edge order."""
-    W0 = (w[:, 0] + w[:, 1]) + w[:, 2]
-    W1 = (w[:, 3] + w[:, 4]) + w[:, 5]
+    edge order (IEEE products: an infinite or NaN weight gives NaN where
+    its edge is not selected)."""
+    W0, W1 = _flat_terms(w)
     acc0 = torch.zeros_like(x)
     acc1 = torch.zeros_like(x)
     for j in range(K):
@@ -337,12 +433,60 @@ def _pwl_apply_plain(x, edges, w, q0):
     return (q0.reshape(-1, 1) + acc0) + x * acc1
 
 
+def _flat_terms(w):
+    """The (B, 128) weights W0 = (w0 + w1) + w2 and W1 = (w3 + w4) + w5."""
+    return (w[:, 0] + w[:, 1]) + w[:, 2], (w[:, 3] + w[:, 4]) + w[:, 5]
+
+
+def _pwl_flat_prefix_ok(edges, w):
+    """(B,) bool: the members whose flat LUT the kernel evaluates from a
+    prefix table: the 128 edges nondecreasing and free of NaN, every W0/W1
+    finite."""
+    W0, W1 = _flat_terms(w)
+    ordered = (edges[:, 1:] >= edges[:, :-1]).all(dim=1)
+    return ordered & torch.isfinite(W0).all(dim=1) & torch.isfinite(W1).all(dim=1)
+
+
+def _pwl_flat_prefix_tables(w, q0):
+    """The (B, 129) tables q0 + P0[t] and P1[t]: P the running sums from +0
+    of the first t W0 (W1) terms, added in edge order as the 128-term sum
+    adds them."""
+    W0, W1 = _flat_terms(w)
+    p0 = torch.zeros_like(W0[:, 0])
+    p1 = torch.zeros_like(p0)
+    A0, P1 = [q0 + p0], [p1]
+    for j in range(K):
+        p0 = p0 + W0[:, j] * 1.0
+        p1 = p1 + W1[:, j] * 1.0
+        A0.append(q0 + p0)
+        P1.append(p1)
+    return torch.stack(A0, dim=1), torch.stack(P1, dim=1)
+
+
+def _pwl_apply_flat_prefix_plain(x, edges, w, q0):
+    """Plain model of the flat kernel on (B, N): t = #{j : x >= edges[j]}
+    from the tree over the sorted edges, then ``A0[t] + x * P1[t]``.  Equal
+    under == to :func:`_pwl_apply_plain` for the members that pass
+    :func:`_pwl_flat_prefix_ok`; the others take that 128-term sum, as the
+    kernel does."""
+    q0 = q0.expand(x.shape[0])
+    t = _tree_count(x, edges, 7)
+    A0, P1 = _pwl_flat_prefix_tables(w, q0)
+    out = torch.gather(A0, 1, t) + x * torch.gather(P1, 1, t)
+    ok = _pwl_flat_prefix_ok(edges, w)
+    if bool(ok.all()):
+        return out
+    return torch.where(ok[:, None], out, _pwl_apply_plain(x, edges, w, q0))
+
+
 def pwl_apply(x, edges, w, q0):
     """Flat 128-edge PWL map (replaces ``pwl_apply``) of ``x`` (B, N):
     ``q0 + cum @ (w0 + w1 + w2) + x * (cum @ (w3 + w4 + w5))`` with
     ``cum_j = 1[x >= edges_j]``; ``edges`` (B, 128), ``w`` (B, 8, 128) of
     bf16x3 delta rows (rows 6-7 unused), ``q0`` (B,).  No dry override.
-    Works for any N."""
+    Works for any N.  The kernel evaluates the map from a per-member prefix
+    table (:func:`_pwl_apply_flat_prefix_plain` is its plain model), equal
+    to the 128-term IEEE sum for every LUT."""
     if not x.is_cuda:
         return _pwl_apply_plain(x, edges, w, q0)
     B, N = x.shape

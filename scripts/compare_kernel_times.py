@@ -82,6 +82,12 @@ def rows(inp, pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp):
     # they fail the prefix-table check, so the kernel takes the 15-term sum
     b["T_slow"] = b["T"].clone()
     b["T_slow"][:, 7, 14] = float("nan")
+    # likewise path C's hierarchical LUTs (the last fine edge of the top
+    # block) and the flat LUTs (the last edge): the 7- and 128-term sums
+    c["M3_slow"] = c["M3"].clone()
+    c["M3_slow"][:, 6, 15] = float("nan")
+    a["edges_slow"] = a["edges"].clone()
+    a["edges_slow"][:, -1] = float("nan")
     v_args = (ch["field"], ch["e8"], ch["T"], ch["q0"], ch["zval"], ch["ztrg"],
               ch["thr"], ch["dy"], ch["D"], ch["kr"], ch["r"], ch["do_rim"])
     C, _ = pallas_chain.chain_match_vert_rim(*v_args)
@@ -121,7 +127,11 @@ def rows(inp, pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp):
         "chain_horiz": lambda: pallas_chain.chain_horiz(C, ch["disp_t"], ch["D"], ch["cval"]),
         "pwl_hier": lambda: pallas_histmatch.pwl_apply_hier(
             c["x"], c["e16"], c["M3"], *c["scal"]),
+        "pwl_hier_slow_lut": lambda: pallas_histmatch.pwl_apply_hier(
+            c["x"], c["e16"], c["M3_slow"], *c["scal"]),
         "pwl_flat": lambda: pallas_histmatch.pwl_apply(a["x"], a["edges"], a["w"], a["q0"]),
+        "pwl_flat_slow_lut": lambda: pallas_histmatch.pwl_apply(
+            a["x"], a["edges_slow"], a["w"], a["q0"]),
         "cdf_counts": lambda: pallas_histmatch.cdf_counts(
             ch["field"].reshape(B, -1), ch["edges"].contiguous()),
         "chain": lambda: pallas_chain.match_warp_rim(

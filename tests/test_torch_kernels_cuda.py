@@ -11,9 +11,10 @@ Every test needs a CUDA card and skips without one.  On the card:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
-Tolerances: 1e-5 x span for K1-K3, chain stage 2 and the PWL maps (one
-or two f32 lerps, or the same sum in the same order), none for K1 and
-chain stage 1's C (the same operations in the same order: equal under ==),
+Tolerances: 1e-5 x span for chain stage 2 (its lerp against the plain
+version's), none for K1-K3, chain stage 1's C and the hierarchical and
+flat maps (the same operations in the same order, or prefix tables equal
+to the sum: equal under ==, NaN where NaN),
 1e-6 for the rims (small integers held in floats), exact for the CDF
 counts (integers).
 """
@@ -287,7 +288,7 @@ def test_pwl_hier(dev, N):
     out = pallas_histmatch.pwl_apply_hier(x, e16, M3, q0, zval, ztrg)
     assert _kernels.LAUNCHES["pwl_hier"] == before + 1
     ref = pallas_histmatch._pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg)
-    _close(out, ref, 1e-5 * float(ref.abs().max()))
+    _close(out, ref, 0.0)
     _close(out[:, 0], q0, 0.0)
 
 
@@ -302,7 +303,129 @@ def test_pwl_flat(dev, N):
     out = pallas_histmatch.pwl_apply(x, edges.contiguous(), w, q0)
     assert _kernels.LAUNCHES["pwl_flat"] == before + 1
     ref = pallas_histmatch._pwl_apply_plain(x, edges, w, q0)
-    _close(out, ref, 1e-5 * float(ref.abs().max()))
+    _close(out, ref, 0.0)
+
+
+def _offset(x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` floats past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + offset, device=x.device)
+    xs = flat[offset:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 == 4 * offset
+    return xs
+
+
+def _specials(x, zval):
+    """Pixels NaN, +-inf, below every edge and at the dry value."""
+    x = x.clone()
+    vals = [float("nan"), float("inf"), float("-inf"), -1e6]
+    for k, v in enumerate(vals[: x.shape[1]]):
+        x[:, k] = v
+    if x.shape[1] > 4:
+        x[:, 4] = zval
+    return x
+
+
+def _hier_luts(edges, d0, d1):
+    """Five members' hierarchical LUTs: 0 and 4 as built; 1 a NaN fine
+    edge, 2 an infinite d0 term, 3 two block starts out of order (all fail
+    the prefix check)."""
+    edges, d0 = edges.clone(), d0.clone()
+    edges[1, 77] = float("nan")
+    d0[2, 19] = float("inf")
+    edges[3, [40, 48]] = edges[3, [48, 40]]
+    e16, M3 = pallas_chain.pack_hier_lut(edges, d0, d1)
+    assert pallas_histmatch._pwl_hier_prefix_ok(e16, M3).tolist() == [
+        True, False, False, False, True]
+    return e16, M3
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("N", [1, 3, 5, 8191, 8193, 320 * 320])
+def test_pwl_hier_alignment_and_failing_luts(dev, N, offset):
+    """The hierarchical kernel on inputs ``offset`` floats past a 16-byte
+    boundary, N below a vector, a block (8,192 pixels) +-1 and path C's
+    320^2, members whose LUT fails the prefix check beside members that
+    pass, NaN, +-inf, below-range and dry pixels: equal to the plain
+    version, one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(N + offset + 11)
+    B = 5
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, N)
+    e16, M3 = _hier_luts(edges, d0, d1)
+    x = _specials(x, zval)
+    ztrg = ztrg.expand(B)
+    before = _kernels.LAUNCHES["pwl_hier"]
+    out = pallas_histmatch.pwl_apply_hier(_offset(x, offset), e16, M3, q0, zval, ztrg)
+    assert _kernels.LAUNCHES["pwl_hier"] == before + 1
+    _close(out, pallas_histmatch._pwl_apply_hier_plain(x, e16, M3, q0, zval, ztrg), 0.0)
+
+
+def _flat_luts(edges, d0, d1):
+    """Five members' flat LUTs: 0 and 4 as built; 1 an infinite weight, 2 a
+    NaN weight, 3 two distinct edges swapped (all fail the prefix check)."""
+    w = pallas_histmatch.flat_weights(d0, d1)
+    edges = edges.clone()
+    w[1, 0, 100] = float("inf")
+    w[2, 4, 50] = float("nan")
+    edges[3, [30, 90]] = edges[3, [90, 30]]
+    assert pallas_histmatch._pwl_flat_prefix_ok(edges, w).tolist() == [
+        True, False, False, False, True]
+    return edges.contiguous(), w
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("N", [1, 3, 5, 16383, 16385, 512 * 512])
+def test_pwl_flat_alignment_and_failing_luts(dev, N, offset):
+    """The flat kernel as the hierarchical one above: blocks of 16,384
+    pixels +-1 and path D's 512^2 a member."""
+    gen = torch.Generator(device=dev).manual_seed(N + offset + 12)
+    B = 5
+    (edges, d0, d1, q0, zval, _), x = _pwl_case(gen, dev, B, N)
+    edges, w = _flat_luts(edges, d0, d1)
+    x = _specials(x, zval)
+    before = _kernels.LAUNCHES["pwl_flat"]
+    out = pallas_histmatch.pwl_apply(_offset(x, offset), edges, w, q0)
+    assert _kernels.LAUNCHES["pwl_flat"] == before + 1
+    _close(out, pallas_histmatch._pwl_apply_plain(x, edges, w, q0), 0.0)
+
+
+@pytest.mark.parametrize("weight", [float("inf"), float("nan")])
+def test_pwl_flat_non_finite_weights(dev, weight):
+    """One weight +inf or NaN in every member: the plain version (and the
+    JAX package on the CPU) gives NaN at every pixel whose edge for it is
+    not selected (inf x 0), and so must the kernel.  A kernel that adds
+    only the selected weights gives finite values there."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B = 3
+    (edges, d0, d1, q0, _, _), x = _pwl_case(gen, dev, B, 40 * 128)
+    w = pallas_histmatch.flat_weights(d0, d1)
+    w[:, 0, 100] = weight
+    edges = edges.contiguous()
+    ref = pallas_histmatch._pwl_apply_plain(x, edges, w, q0)
+    below = x < edges[:, 100:101]
+    assert bool(below.any()) and bool(torch.isnan(ref[below]).all())
+    _close(pallas_histmatch.pwl_apply(x, edges, w, q0), ref, 0.0)
+
+
+@pytest.mark.parametrize("path", ["C", "D"])
+def test_pwl_maps_at_the_path_shapes(dev, path):
+    """The hierarchical map at path C's 96 x 320^2 and the flat map at path
+    D's 96 x 512^2, member LUTs as STEPS builds them: equal to the plain
+    versions."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    B, N = (96, 320 * 320) if path == "C" else (96, 512 * 512)
+    (edges, d0, d1, q0, zval, ztrg), x = _pwl_case(gen, dev, B, N)
+    if path == "C":
+        e16, M3 = pallas_chain.pack_hier_lut(edges, d0, d1)
+        args = (x, e16, M3, q0, zval, ztrg.expand(B))
+        assert bool(pallas_histmatch._pwl_hier_prefix_ok(e16, M3).all())
+        _close(pallas_histmatch.pwl_apply_hier(*args),
+               pallas_histmatch._pwl_apply_hier_plain(*args), 0.0)
+    else:
+        args = (x, edges.contiguous(), pallas_histmatch.flat_weights(d0, d1), q0)
+        assert bool(pallas_histmatch._pwl_flat_prefix_ok(*args[1:3]).all())
+        _close(pallas_histmatch.pwl_apply(*args), pallas_histmatch._pwl_apply_plain(*args), 0.0)
 
 
 @pytest.mark.parametrize("N", [1, 1000, 512 * 512])
