@@ -21,7 +21,10 @@ Phases, each printing JSON lines:
    graph (device time); each kernel also called eagerly, host included,
    as ``ms_eager``.  The chain and the CDF counts run on the inputs of
    path A's last lead, recorded from one forecast with each lead's
-   largest displacements;
+   largest displacements; the CDF counts also on a field whose pixels
+   all equal one edge (``ms_one_value``), with the largest share of a
+   member's pixels in one bin of their histogram on path E's inputs on a
+   ``cdf_bins`` line of its own;
    the chain is timed beside K3 -> K4 -> K2 on those inputs; stage 1,
    K3 and the hierarchical and flat maps also on a LUT that fails their
    prefix-table check (the exact full sum out of line, ``ms_slow_lut``,
@@ -83,6 +86,7 @@ AR_ORDER = 2
 # (members, side, leads)
 PATH_B = (32, 1024, 6)
 PATH_C = (96, 320, 6)
+CDF_BINS = 129  # the CDF counts' histogram: k = 0..128 edges at or below a pixel
 # memory rate (bytes/s) and non-tensor-core f32 rate (FLOP/s) by card,
 # from NVIDIA's data sheets; the SXM part's figures are the default
 CARD_PEAKS = {
@@ -602,6 +606,33 @@ def phase_kernels(peaks, leads, captured, report):
     def sort_search():
         return n_px - torch.searchsorted(torch.sort(xe, dim=1).values, edges_e)
 
+    def member_hist(k):
+        """The (E, 129) counts of each member's bins ``k`` (E, n_px), the
+        members' bins counted in one bincount."""
+        k = k + (CDF_BINS * torch.arange(E, device=dev))[:, None]
+        return torch.bincount(k.reshape(-1), minlength=E * CDF_BINS).reshape(E, CDF_BINS)
+
+    def bin_count():
+        # each pixel's bin k = #{edges <= x} (searchsorted is bucketize's
+        # batched form), then the suffix sums #{k > s}
+        hist = member_hist(torch.searchsorted(edges_e, xe, right=True))
+        return hist.flip(1).cumsum(1).flip(1)[:, 1:]
+
+    # the hot bin, measured: each member's largest bin of the kernel's
+    # histogram (k = #{s : x >= sorted[s]}, the plain model's search)
+    srt, _ = pallas_histmatch._cdf_sort(edges_e)
+    largest = member_hist(pallas_histmatch._tree_count(xe, srt, 7)).max(dim=1)
+    emit({"phase": "cdf_bins", "path": "E", "shape": list(xe.shape), "bins": CDF_BINS,
+          "largest_bin_share_max": float(largest.values.max()) / n_px,
+          "largest_bin_share_median": float(largest.values.float().median()) / n_px,
+          "largest_bin_of_member0": int(largest.indices[0]),
+          "dry_share_member0": float((xe[0] == xe[0].min()).float().mean())})
+    # every pixel of a member equal to one of its edges: all in one bin
+    x_one = edges_e[:, 5:6].expand(E, n_px).contiguous()
+    one = pallas_histmatch.cdf_counts(x_one, edges_e)
+    err_one = float((one - pallas_histmatch._cdf_counts_plain(x_one, edges_e)).abs().max())
+    if err_one != 0.0:
+        raise AssertionError(f"cdf_counts: one-value field differs from the plain version by {err_one}")
     counts = pallas_histmatch.cdf_counts(xe, edges_e)
     recs.append(_record(
         "cdf_counts", "pysteps_tpu_torch/csrc/cdf.cu",
@@ -618,8 +649,17 @@ def phase_kernels(peaks, leads, captured, report):
         # edges and the suffix sum of the 129 bins are negligible beside it
         (search_ops + 1) * xe.numel(), peaks, "E", shape=list(xe.shape),
         library_same_counts=torch.equal(sort_search().to(torch.float32), counts),
+        # bincount reads its largest value back to the host, so no CUDA
+        # graph: eager device time
+        library_hist_ms=cuda_ms(bin_count, 20, 5),
+        library_hist_call="torch.searchsorted (bucketize's batched form) + torch.bincount + "
+        "torch.cumsum (eager; the same counts only for sorted edges without NaN)",
+        library_hist_same_counts=torch.equal(bin_count().to(torch.float32), counts),
+        ms_one_value=steady_ms(lambda: pallas_histmatch.cdf_counts(x_one, edges_e)),
+        max_abs_err_one_value=err_one,
         ptxas=ptxas("pst_cdf_counts_kernel"),
     ))
+    del x_one
 
     # the chain on path A's own inputs: its last lead, recorded from a
     # forecast at the headline configuration
@@ -935,7 +975,9 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("library_call", "path", "shape", "launches_by_path", "at_C", "chain_ms",
              "unfused_ms", "ms_eager", "library_ms_eager", "ms_slow_lut", "matches_per_output",
-             "library_same_counts", "dtype", "warp_route", "rim_route", "ptxas")
+             "library_same_counts", "library_hist_ms", "library_hist_call",
+             "library_hist_same_counts", "ms_one_value", "max_abs_err_one_value", "dtype",
+             "warp_route", "rim_route", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
           "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})

@@ -76,8 +76,9 @@ _SIGNATURES = {
     "pst_pwl_hier": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
     # x, edges, w, q0, out, batch, N, stream
     "pst_pwl_flat": (_vp, _vp, _vp, _vp, _vp, _ll, _ll, _vp),
-    # x, edges, out (int32, zeroed by the entry point), batch, N, stream
-    "pst_cdf_counts": (_vp, _vp, _vp, _ll, _ll, _vp),
+    # x, edges, work (int32 (batch, 129), zeroed by the entry point), out
+    # (f32), batch, N, stream
+    "pst_cdf_counts": (_vp, _vp, _vp, _vp, _ll, _ll, _vp),
 }
 
 _lib = None

@@ -315,8 +315,9 @@ def _tree_src(levels):
 
 def _tree_count(x, e, levels):
     """#{j : x >= e[:, j]} for ``x`` (B, N) and ``e`` (B, 2^L), each row
-    nondecreasing and free of NaN, the kernels' way: L steps down the tree
-    over ``e[:, 1:]``, then one compare with ``e[:, 0]``."""
+    nondecreasing with any NaN last (so that x >= e[:, j] holds for a
+    prefix of j), the kernels' way: L steps down the tree over ``e[:, 1:]``,
+    then one compare with ``e[:, 0]``."""
     tree = e[:, _tree_src(levels)]
     i = torch.ones(x.shape, dtype=torch.long, device=x.device)
     for _ in range(levels):
@@ -571,6 +572,36 @@ def _cdf_counts_plain(x, edges):
     return counts.to(torch.float32)
 
 
+def _cdf_sort(edges):
+    """The kernel's rank sort of ``edges`` (B, 128): by a key, the value's
+    bits ordered as unsigned integers (the largest key where isnan: a NaN
+    with its sign bit set would otherwise sort below -inf), then by index.
+    The sorted edges are nondecreasing with any NaN last (-0 before +0,
+    which compare equal).  Returns them and the permutation ``perm`` with
+    ``sorted[:, s] = edges[:, perm[:, s]]``."""
+    bits = edges.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    key = torch.where(bits >= 2**31, 0xFFFFFFFF - bits, bits + 2**31)
+    key = torch.where(torch.isnan(edges), 0xFFFFFFFF, key)
+    perm = torch.argsort(key * K + torch.arange(K, device=edges.device), dim=1)
+    return torch.gather(edges, 1, perm), perm
+
+
+def _cdf_counts_search_plain(x, edges):
+    """Plain model of the ``cdf_counts`` kernel on ``x`` (B, N) and
+    ``edges`` (B, 128): the edges sorted by :func:`_cdf_sort`, each pixel's
+    ``k = #{s : x >= sorted[s]}`` from the tree search
+    (:func:`_tree_count`: x >= sorted[s] holds for a prefix of s, the NaNs
+    sitting last), a 129-bin histogram of k, its suffix sums
+    ``cnt[s] = sum_{k > s} hist[k]`` and their scatter to ``perm[s]``.
+    Equal to :func:`_cdf_counts_plain` for every input; used on no path."""
+    srt, perm = _cdf_sort(edges)
+    k = _tree_count(x, srt, 7)
+    hist = torch.zeros((x.shape[0], K + 1), dtype=torch.int64, device=x.device)
+    hist.scatter_add_(1, k, torch.ones_like(k))
+    cnt = hist.flip(1).cumsum(1).flip(1)[:, 1:]
+    return torch.zeros_like(cnt).scatter_(1, perm, cnt).to(torch.float32)
+
+
 def cdf_counts(field, edges):
     """Exact counts ``#(x >= edges[j])`` at 128 edges (replaces
     ``cdf_counts``).
@@ -578,12 +609,15 @@ def cdf_counts(field, edges):
     ``edges`` (128,): counted over every pixel of ``field`` (any shape),
     returns (128,), the JAX function's form.  ``edges`` (B, 128) with
     ``field`` (B, ...): counted per member, returns (B, 128), as
-    ``vmap(cdf_counts)``.  Every edge is compared with every pixel: edges
-    need not be sorted, a NaN edge counts 0, a NaN pixel counts under no
-    edge.  The counts are integers converted to f32 once, so they are exact
-    below 2^24 pixels a member (where the JAX function's f32 sums are exact
-    too) and the nearest f32 above.  Any pixel count works on the card (the
-    TPU kernel needs a multiple of 128); at most 2^31 - 1 a member."""
+    ``vmap(cdf_counts)``.  Edges need not be sorted, a NaN edge counts 0,
+    a NaN pixel counts under no edge.  The kernel sorts each member's edges
+    and counts each pixel once, by a search and a 129-bin histogram
+    (:func:`_cdf_counts_search_plain` is its plain model), in one launch
+    that writes the f32 counts.  The counts are integers converted to f32
+    once, so they are exact below 2^24 pixels a member (where the JAX
+    function's f32 sums are exact too) and the nearest f32 above.  Any
+    pixel count works on the card (the TPU kernel needs a multiple of 128);
+    at most 2^31 - 1 a member."""
     if edges.shape[-1] != K or edges.dim() not in (1, 2):
         raise ValueError(f"cdf_counts: edges must be ({K},) or (B, {K}), got {tuple(edges.shape)}")
     batched = edges.dim() == 2
@@ -598,11 +632,11 @@ def cdf_counts(field, edges):
     N = x.shape[1]
     if N >= 2**31:
         raise ValueError("cdf_counts: at most 2^31 - 1 pixels a member")
-    counts = torch.empty((B, K), dtype=torch.int32, device=x.device)
+    work = torch.empty((B, K + 1), dtype=torch.int32, device=x.device)
+    out = torch.empty((B, K), dtype=torch.float32, device=x.device)
     _kernels.launch(
         "pst_cdf_counts", x.device, x.data_ptr(), edges.data_ptr(),
-        counts.data_ptr(), B, N,
+        work.data_ptr(), out.data_ptr(), B, N,
     )
     _kernels.LAUNCHES["cdf_counts"] += 1
-    out = counts.to(torch.float32)
     return out if batched else out[0]

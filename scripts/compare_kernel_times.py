@@ -92,6 +92,8 @@ def rows(inp, pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp):
               ch["thr"], ch["dy"], ch["D"], ch["kr"], ch["r"], ch["do_rim"])
     C, _ = pallas_chain.chain_match_vert_rim(*v_args)
     B, m, n = ch["field"].shape
+    # every pixel of a member equal to one of its edges: one hot bin
+    x_one = ch["edges"][:, 5:6].expand(B, m * n).contiguous()
     ztrg_b = ch["ztrg"].expand(B)
 
     def unfused():
@@ -134,6 +136,8 @@ def rows(inp, pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp):
             a["x"], a["edges_slow"], a["w"], a["q0"]),
         "cdf_counts": lambda: pallas_histmatch.cdf_counts(
             ch["field"].reshape(B, -1), ch["edges"].contiguous()),
+        "cdf_counts_one_value": lambda: pallas_histmatch.cdf_counts(
+            x_one, ch["edges"].contiguous()),
         "chain": lambda: pallas_chain.match_warp_rim(
             ch["field"], ch["e8"], ch["T"], ch["q0"], ch["zval"], ch["ztrg"], ch["thr"],
             ch["dy"], ch["disp_t"], ch["cval"], ch["D"], ch["kr"], ch["r"], ch["do_rim"]),

@@ -16,7 +16,8 @@ version's), none for K1-K3, chain stage 1's C and the hierarchical and
 flat maps (the same operations in the same order, or prefix tables equal
 to the sum: equal under ==, NaN where NaN),
 1e-6 for the rims (small integers held in floats), exact for the CDF
-counts (integers).
+counts (integers; also against the CPU model of their kernel,
+``pallas_histmatch._cdf_counts_search_plain``).
 """
 
 import numpy as np
@@ -428,6 +429,78 @@ def test_pwl_maps_at_the_path_shapes(dev, path):
         _close(pallas_histmatch.pwl_apply(*args), pallas_histmatch._pwl_apply_plain(*args), 0.0)
 
 
+NEG_NAN = np.array(0xFFC00000, np.uint32).view(np.float32)  # NaN, sign bit set
+CDF_CASES = ["unsorted", "all_equal", "tie_runs", "signed_zero", "infinite", "one_nan",
+             "all_nan", "negative_nan", "nan_pixels", "hot_value", "one_value"]
+
+
+def cdf_case(name, n=1024, seed=0):
+    """Pixels (n,) and 128 edges of one named case of the CDF counts, as
+    numpy f32: a field on a half-unit grid (many pixels tie with an edge)
+    and unsorted edges, most of them pixel values, then the case's twist.
+    The CPU tests of the kernel's model share them."""
+    rng = np.random.default_rng(seed)
+    x = (np.round(rng.normal(0.0, 2.0, n) * 2.0) / 2.0).astype(np.float32)
+    edges = np.concatenate([x[rng.integers(0, n, 96)], rng.normal(0.0, 3.0, 32)])
+    edges = rng.permutation(edges).astype(np.float32)
+    if name == "all_equal":
+        edges[:] = x[n // 2]
+    elif name == "tie_runs":
+        edges = np.repeat(edges[:16], 8)[rng.permutation(128)]
+    elif name == "signed_zero":
+        edges[rng.permutation(128)[:40]] = np.where(np.arange(40) % 2, 0.0, -0.0)
+        x[rng.permutation(n)[: n // 4]] = np.where(np.arange(n // 4) % 2, 0.0, -0.0)
+    elif name == "infinite":
+        edges[rng.permutation(128)[:20]] = np.where(np.arange(20) % 2, np.inf, -np.inf)
+        k = min(n, 6)
+        x[:k] = np.array([np.inf, -np.inf, np.inf, -np.inf, 0.0, np.inf])[:k]
+    elif name == "one_nan":
+        edges[37] = np.nan
+    elif name == "all_nan":
+        edges[:] = np.nan
+    elif name == "negative_nan":
+        edges[rng.permutation(128)[:5]] = NEG_NAN
+        edges[:3] = [-np.inf, np.nan, np.inf]
+    elif name == "nan_pixels":
+        x[rng.permutation(n)[: n // 10]] = np.nan
+        x[rng.permutation(n)[: min(n, 7)]] = NEG_NAN
+    elif name == "hot_value":
+        # 90% of the pixels share one value, itself an edge: one bin holds them
+        x[rng.permutation(n)[: 9 * n // 10]] = -15.0
+        edges[5] = -15.0
+    elif name == "one_value":
+        # every pixel equals one edge's value
+        x[:] = edges[5]
+    else:
+        assert name == "unsorted"
+    return x, edges
+
+
+def _cdf_inputs(dev, case, B, N, offset=0):
+    """B members of ``case`` (member b from seed b), on the card; with
+    ``offset`` floats before the field in its buffer, so that its data
+    pointer leaves 16-byte alignment."""
+    cases = [cdf_case(case, N, seed=b) for b in range(B)]
+    buf = torch.empty(B * N + offset, device=dev)
+    x = buf[offset:].view(B, N)
+    x.copy_(torch.from_numpy(np.stack([c[0] for c in cases])))
+    return x, torch.from_numpy(np.stack([c[1] for c in cases])).to(dev)
+
+
+def _check_cdf(x, edges):
+    """The kernel bit-equal to the plain version and to the CPU model of
+    its algorithm, one counted launch a call."""
+    before = _kernels.LAUNCHES["cdf_counts"]
+    out = pallas_histmatch.cdf_counts(x, edges)
+    assert _kernels.LAUNCHES["cdf_counts"] == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == edges.shape
+    assert torch.equal(out, pallas_histmatch._cdf_counts_plain(x, edges))
+    model = pallas_histmatch._cdf_counts_search_plain(x.cpu(), edges.cpu())
+    assert torch.equal(out.cpu(), model)
+    return out
+
+
 @pytest.mark.parametrize("N", [1, 1000, 512 * 512])
 @pytest.mark.parametrize("B", [1, 96])
 def test_cdf_counts(dev, B, N):
@@ -455,6 +528,34 @@ def test_cdf_counts(dev, B, N):
     # the JAX function's form: one field of any shape, edges (128,)
     one = pallas_histmatch.cdf_counts(x[0].reshape(1, N), edges[0])
     assert torch.equal(one, ref[0])
+
+
+@pytest.mark.parametrize("N", [1, 1001, 512 * 512])
+@pytest.mark.parametrize("case", CDF_CASES)
+def test_cdf_counts_cases(dev, case, N):
+    """Each case of the model's CPU tests on the card, 3 members: sorted
+    ties, +-0, +-inf, NaN edges (one, all, sign bit set), NaN pixels, a
+    hot bin, one value; N = 1, 1001 (neither a multiple of 4 nor of 128) and 512^2."""
+    _check_cdf(*_cdf_inputs(dev, case, 3, N))
+
+
+@pytest.mark.parametrize("N", [7, 1001, 512 * 512])
+def test_cdf_counts_unaligned_field(dev, N):
+    """A field whose data pointer is one float past 16-byte alignment: each
+    member row starts off its alignment, so the scalar head and tail and
+    the vectors between them all run."""
+    x, edges = _cdf_inputs(dev, "nan_pixels", 3, N, offset=1)
+    assert x.data_ptr() % 16 == 4
+    _check_cdf(x, edges)
+
+
+@pytest.mark.parametrize("case", ["hot_value", "one_value"])
+def test_cdf_counts_hot_bin_at_path_e(dev, case):
+    """Path E's 96 x 262,144 with 90% and with all of each member's pixels
+    in one bin."""
+    out = _check_cdf(*_cdf_inputs(dev, case, 96, 512 * 512))
+    if case == "one_value":
+        assert bool((out.max(dim=1).values == 512 * 512).all())
 
 
 def _spoil(T):
@@ -743,3 +844,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         pallas_histmatch.cdf_counts(x.double(), edges)
     with pytest.raises(ValueError):
         pallas_histmatch.cdf_counts(x, edges[:, :64])
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x, torch.zeros((128, 2), device=dev).t())
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x[:1], edges)
+    with pytest.raises(ValueError):
+        pallas_histmatch.cdf_counts(x, edges[None])
