@@ -47,6 +47,17 @@ Phases, each printing JSON lines:
    last lead at the 128 edges its PWL LUT build placed, bit-equal to the
    plain version (whose last 16 counts are the build's exact tail
    counts);
+10. noise parity: STEPS' other noise filters built on the card and on the
+   CPU from the same aligned 512^2 inputs (the parametric filter with its
+   radial PSD and 4 fitted parameters, the SSFT stack at its default 128^2
+   windows, the nested stack at ``max_level=3``) and the noise std
+   adjustment of the parametric and SSFT filters on both devices from the
+   same white draws, each comparison printed with its tolerance, each
+   card build's seconds beside it;
+11. paths F, G and H: path A's forecast with the parametric filter and
+   ``noise_stddev_adj="auto"`` (F), SSFT and "fixed" (G), nested at 6
+   leads (H), each with exactly path A's kernel launches at its lead
+   count and an ensemble spread above 0 at every lead;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -69,7 +80,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from pysteps_tpu_torch import nowcasts  # noqa: E402
+from pysteps_tpu_torch import noise, nowcasts  # noqa: E402
+from pysteps_tpu_torch.noise import fftgenerators  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
 from pysteps_tpu_torch.ops import (  # noqa: E402
@@ -86,6 +98,13 @@ AR_ORDER = 2
 # (members, side, leads)
 PATH_B = (32, 1024, 6)
 PATH_C = (96, 320, 6)
+# STEPS' other noise generators on the main path's grid: (members, side,
+# leads, the forecast's other arguments); H cut in leads, as B and C are
+NOISE_PATHS = {
+    "F": (N_MEMBERS, SIDE, N_LEADS, dict(noise_method="parametric", noise_stddev_adj="auto")),
+    "G": (N_MEMBERS, SIDE, N_LEADS, dict(noise_method="ssft", noise_stddev_adj="fixed")),
+    "H": (N_MEMBERS, SIDE, 6, dict(noise_method="nested")),
+}
 CDF_BINS = 129  # the CDF counts' histogram: k = 0..128 edges at or below a pixel
 # memory rate (bytes/s) and non-tensor-core f32 rate (FLOP/s) by card,
 # from NVIDIA's data sheets; the SXM part's figures are the default
@@ -818,18 +837,19 @@ def phase_parity():
         raise AssertionError(f"parity: card and CPU disagree: {rec}")
 
 
-def _forecast_path(label, E, side, T, expected, name, smi):
+def _forecast_path(label, E, side, T, expected, name, smi, extra=None):
     """Drive ``nowcasts.get_method("steps")`` at ``E`` members x ``side``^2
-    x ``T`` leads with the benchmark's configuration: once to warm up, then
-    timed with the launch counts set to 0 just before and read just after.
-    Raises unless the counts are ``expected`` (every other kernel 0) and the
-    output is a plausible forecast."""
+    x ``T`` leads with the benchmark's configuration (updated by
+    ``extra``): once to warm up, then timed with the launch counts set to 0
+    just before and read just after.  Raises unless the counts are
+    ``expected`` (every other kernel 0) and the output is a plausible
+    forecast whose members spread at every lead."""
     precip_db, velocity = bench_inputs(side)
     dev = torch.device("cuda")
     p = torch.as_tensor(precip_db, device=dev)
     v = torch.as_tensor(velocity, device=dev)
     f = nowcasts.get_method("steps")
-    kw = dict(BENCH_KWARGS, n_ens_members=E)
+    kw = dict(BENCH_KWARGS, n_ens_members=E, **(extra or {}))
     out = f(p, v, T, **kw)
     float(torch.nanmean(out))
     del out
@@ -858,7 +878,12 @@ def _forecast_path(label, E, side, T, expected, name, smi):
     expected = dict(dict.fromkeys(launches, 0), **expected)
     if launches != expected:
         raise AssertionError(f"{label}: launches {launches} != expected {expected}")
-    emit({"phase": f"path {label}", "shape": list(out.shape),
+    # the members' standard deviation, averaged over each lead's pixels
+    spread = torch.nanmean(out.std(dim=0).reshape(T, -1), dim=1).cpu().numpy()
+    if not bool((spread > 0).all()):
+        raise AssertionError(f"{label}: no ensemble spread at some lead: {spread.tolist()}")
+    emit({"phase": f"path {label}", "shape": list(out.shape), **(extra or {}),
+          "spread_per_lead": spread.tolist(),
           "member_frames_per_s": E * T / wall, "wall_s": wall, "init_s": init_s,
           "loop_s": loop_s, "max_memory_allocated": peak,
           "finite_fraction_first_last_lead": [float(finite[0]), float(finite[-1])],
@@ -955,7 +980,116 @@ def phase_paths(name, smi, captured):
           "equal_to_plain": True, "counts_first_last_member0": [
               float(counts[0, 0]), float(counts[0, -1])],
           "launches": by_path["E"], "device": name, "nvidia_smi": smi})
+
+    # F, G, H: the other noise generators launch exactly what path A does
+    for label, (E, side, T, extra) in NOISE_PATHS.items():
+        k1 = _k1_launches(T)
+        by_path[label] = _forecast_path(label, E, side, T, {
+            "resample_axis0": k1, "resample_axis1": k1, "chain_match_vert_rim": T,
+            "chain_horiz": T, "rim_from_mask": 1}, name, smi, extra)
     return by_path
+
+
+def _card_and_cpu(build, x_card, x_cpu):
+    """``build`` on the card (once to warm up, then timed) and on the CPU;
+    returns (card result, CPU result, card s, CPU s)."""
+    build(x_card)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    card = build(x_card)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    cpu = build(x_cpu)
+    return card, cpu, t1 - t0, time.time() - t1
+
+
+def _held(label, card, cpu, rtol, of_max, **extra):
+    """Raise unless ``card`` is within ``rtol`` of ``cpu`` (plus ``rtol``
+    x max|cpu| absolute with ``of_max``); print the comparison."""
+    torch.cuda.synchronize()
+    c = torch.as_tensor(card).detach().cpu().double()
+    r = torch.as_tensor(cpu).detach().double()
+    if c.shape != r.shape or not bool(torch.isfinite(c).all()):
+        raise AssertionError(f"noise_parity {label}: shape {tuple(c.shape)} or not finite")
+    atol = rtol * float(r.abs().max()) if of_max else 0.0
+    excess = float(((c - r).abs() - (atol + rtol * r.abs())).max())
+    emit({"phase": "noise_parity", "what": label, "shape": list(c.shape),
+          "max_abs_diff": float((c - r).abs().max()),
+          "max_rel_diff": float(((c - r).abs() / r.abs().clamp(min=1e-30)).max()),
+          "rtol": rtol, "atol": atol, **extra})
+    if excess > 0:
+        raise AssertionError(f"noise_parity {label}: card and CPU differ beyond rtol {rtol}")
+
+
+def phase_noise_parity(name, smi):
+    """STEPS' other noise filters and the std adjustment built on the card
+    and on the CPU from path A's aligned 512^2 inputs (aligned on the card,
+    the same tensor copied to the CPU), the adjustment from the same white
+    draws on both devices.  Tolerances: the radial PSD and the SSFT and
+    nested stacks rtol 1e-4 (the stacks with 1e-4 x max absolute: cuFFT
+    against the CPU's FFT in float32), the 4 fitted power-law parameters
+    rtol 1e-3 (1e-6 absolute for one at its bound 0) and the parametric
+    filter rtol 1e-3, the std adjustments rtol 1e-4."""
+    precip_db, velocity = bench_inputs(SIDE)
+    dev = torch.device("cuda")
+    p = torch.as_tensor(precip_db, device=dev)
+    v = torch.as_tensor(velocity, device=dev)
+    aligned = steps_mod._lagrangian_alignment(p, v, max_disp=steps_mod._MAX_DISP)
+    aligned_cpu = aligned.cpu()
+    common = {"device": name, "nvidia_smi": smi}
+
+    ones = torch.ones((SIDE, SIDE))
+    psd_card, psd_cpu, s_card, s_cpu = _card_and_cpu(
+        lambda x: fftgenerators._param_psd(x, ones.to(x.device)), aligned, aligned_cpu)
+    _held("parametric radial PSD", psd_card, psd_cpu, 1e-4, False, card_s=s_card,
+          cpu_s=s_cpu, **common)
+    init_param = noise.get_method("parametric")[0]
+    par_card, par_cpu, s_card, s_cpu = _card_and_cpu(init_param, aligned, aligned_cpu)
+    if par_card["field"].device.type != "cuda":
+        raise AssertionError("noise_parity: the parametric filter was not built on the card")
+    excess = np.abs(par_card["pars"] - par_cpu["pars"]) - (1e-6 + 1e-3 * np.abs(par_cpu["pars"]))
+    emit({"phase": "noise_parity", "what": "parametric power-law parameters",
+          "card": par_card["pars"].tolist(), "cpu": par_cpu["pars"].tolist(),
+          "rtol": 1e-3, "atol": 1e-6, **common})
+    if float(excess.max()) > 0:
+        raise AssertionError("noise_parity: the fitted power-law parameters differ")
+    _held("parametric filter", par_card["field"], par_cpu["field"], 1e-3, False,
+          card_s=s_card, cpu_s=s_cpu, **common)
+
+    stacks = {}
+    for method, kw in (("ssft", {}), ("nested", {"max_level": 3})):
+        init = noise.get_method(method)[0]
+        card, cpu, s_card, s_cpu = _card_and_cpu(lambda x: init(x, **kw), aligned, aligned_cpu)
+        if card["field"].device.type != "cuda":
+            raise AssertionError(f"noise_parity: the {method} stack was not built on the card")
+        _held(f"{method} stack {kw}", card["field"], cpu["field"], 1e-4, True,
+              card_s=s_card, cpu_s=s_cpu, **common)
+        stacks[method] = (card, cpu)
+
+    # the std adjustment: 20 white fields drawn once, handed to both devices
+    bp = steps_mod.cascade.get_method("gaussian")((SIDE, SIDE), 8)
+    normal = torch.randn((20, SIDE, SIDE), generator=torch.Generator().manual_seed(3))
+    real_draw = fftgenerators._white_normal
+    fftgenerators._white_normal = lambda g, shape, batch: normal.to(g.device)
+    try:
+        for label, (card, cpu) in (("parametric", (par_card, par_cpu)),
+                                   ("ssft", stacks["ssft"])):
+            adjs = noise.utils.compute_noise_stddev_adjs
+
+            def run(F, x):
+                return adjs(x[-1], -10.0, float(x.min()), bp, None, F, None, 20)
+
+            run(card, aligned)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            a_card = run(card, aligned)
+            torch.cuda.synchronize()
+            t1 = time.time()
+            a_cpu = run(cpu, aligned_cpu)
+            _held(f"noise_stddev_adjs {label}", a_card, a_cpu, 1e-4, False,
+                  card_s=t1 - t0, cpu_s=time.time() - t1, **common)
+    finally:
+        fftgenerators._white_normal = real_draw
 
 
 def main():
@@ -965,6 +1099,7 @@ def main():
     leads, captured = _capture_chain_leads()
     recs = phase_kernels(peaks, leads, captured, report)
     phase_parity()
+    phase_noise_parity(name, smi)
     by_path = phase_paths(name, smi, captured)
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]

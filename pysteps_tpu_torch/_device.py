@@ -21,3 +21,19 @@ def resolve_device(device=None, *inputs):
             "available; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def device_of(x, device=None):
+    """The device an entry point runs on for its input ``x``: ``device``
+    if given, else the device of ``x`` if it is a tensor, else the port's
+    default (the card; see ``resolve_device``)."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device)
+
+
+def as_device_tensor(x, device=None, dtype=None):
+    """``x`` as a tensor on ``device_of(x, device)``: a tensor keeps its
+    own device unless ``device`` is given, anything else goes to the card
+    unless the caller asks for the CPU."""
+    return torch.as_tensor(x, dtype=dtype, device=device_of(x, device))

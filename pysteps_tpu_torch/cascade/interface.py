@@ -1,8 +1,9 @@
 """Cascade method registry (counterpart of ``pysteps_tpu/cascade/interface.py``)."""
 
-from pysteps_tpu_torch.cascade import bandpass_filters
+from pysteps_tpu_torch.cascade import bandpass_filters, decomposition
 
 _cascade_methods = {
+    "fft": (decomposition.decomposition_fft, decomposition.recompose_fft),
     "gaussian": bandpass_filters.filter_gaussian,
     "uniform": bandpass_filters.filter_uniform,
 }

@@ -21,8 +21,10 @@ The JAX package's design carries over with PyTorch idiom:
   ``use_chain`` as explicit arguments, so any path can be driven on
   either device.
 
-Not ported (they raise ``NotImplementedError``): parametric, ssft and
-nested noise, ``noise_stddev_adj``, ``mesh``, and the streaming callback
+Every noise method of the JAX package runs (nonparametric, parametric,
+ssft, nested, or none) with either ``noise_stddev_adj`` ("auto",
+"fixed"); the filters are built on the forecast's device.  Not ported
+(they raise ``NotImplementedError``): ``mesh`` and the streaming callback
 path (``callback`` with ``return_output=False``).
 """
 
@@ -33,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pysteps_tpu_torch import cascade
+from pysteps_tpu_torch import cascade, noise
 from pysteps_tpu_torch._device import resolve_device
 from pysteps_tpu_torch.cascade.decomposition import (
     decompose_core,
@@ -65,7 +67,7 @@ from pysteps_tpu_torch.utils.check_norain import check_norain
 # static displacement bound (pixels) of the kernel path: grids of at least
 # 3 * _MAX_DISP pixels a side use it for every storm
 _MAX_DISP = 48
-_UNPORTED_NOISE = ("parametric", "ssft", "nested")
+_NOISE_METHODS = (None, "nonparametric", "parametric", "ssft", "nested")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +160,22 @@ def params_from_numpy(params, state, device, seed):
     return p, s
 
 
+def noise_from_numpy(noise_filt, ssft_masks, noise_std_coeffs, device):
+    """The scan's noise inputs from the JAX package's init, given as numpy
+    arrays: the filter as the scan takes it (2-D, after the spectral
+    domain's half-plane slice, or the (wy, wx, m, n) SSFT / nested stack),
+    the SSFT masks or None, and the per-level noise std coefficients.
+    Returns a dict of tensors with those keys."""
+    device = torch.device(device)
+
+    def t(x):
+        return None if x is None else torch.as_tensor(
+            np.array(x, np.float32), device=device)
+
+    return {"noise_filt": t(noise_filt), "ssft_masks": t(ssft_masks),
+            "noise_std_coeffs": t(noise_std_coeffs)}
+
+
 def _nanmin(x):
     return torch.where(torch.isnan(x), float("inf"), x).amin()
 
@@ -202,7 +220,7 @@ def _estimate_params(precip_aligned, weights_2d, mask_thr, ar_order, conditional
     if ar_order == 2:
         g2 = autoregression.adjust_lag2_corrcoef2(gamma[:, 0], gamma[:, 1])
         gamma = torch.stack([gamma[:, 0], g2], dim=1)
-    phi = autoregression.estimate_ar_params_yw(gamma)
+    phi = autoregression.estimate_ar_params_yw(gamma, check_stationarity=False)
     return cascades, means, stds, gamma, phi
 
 
@@ -238,15 +256,28 @@ def _ar_step_lags(lags, phi, eps=None):
 def _member_update(
     generator, cascades_j, phi, noise_filt, noise_filt_shape, weights_2d,
     noise_std_coeffs, means_last, stds_last, spectral, batch,
+    use_full_fft=False, ssft_masks=None,
 ):
     """A member chunk's cascade update: noise -> AR -> recompose.
     ``cascades_j``: tuple of p lags (batch, k, m, n) spatial or
-    (batch, k, m, n//2+1) spectral."""
+    (batch, k, m, n//2+1) spectral.  ``noise_filt`` is a half-plane filter,
+    a full-plane one with ``use_full_fft``, or with ``ssft_masks`` an SSFT
+    / nested stack, whose noise is made in the spatial domain."""
     shape = noise_filt_shape
-    if spectral:
+    if ssft_masks is not None:
+        eps = fftgenerators._generate_ssft_noise(
+            generator, noise_filt, ssft_masks, shape, batch
+        )
+        if spectral:
+            eps_levels, _, _ = decompose_spectral_core(
+                torch.fft.rfft2(eps), weights_2d, shape, normalize=True
+            )
+        else:
+            eps_levels, _, _ = decompose_core(eps, weights_2d, normalize=True)
+    elif spectral:
         eps_fft = fftgenerators._generate_fft_noise(
             generator, noise_filt, shape, batch, domain="spectral",
-            standardize=False,
+            standardize=False, use_full_fft=use_full_fft,
         )
         eps_levels, _, _ = decompose_spectral_core(
             eps_fft, weights_2d, shape, normalize=True
@@ -254,7 +285,7 @@ def _member_update(
     else:
         eps = fftgenerators._generate_fft_noise(
             generator, noise_filt, shape, batch, domain="spatial",
-            standardize=False,
+            standardize=False, use_full_fft=use_full_fft,
         )
         eps_levels, _, _ = decompose_core(eps, weights_2d, normalize=True)
     eps_levels = eps_levels * noise_std_coeffs[:, None, None]
@@ -342,10 +373,14 @@ def _steps_scan(
     int_steps, noise, mask_method, probmatching, domain, vel_pert,
     timestep_min, mask_rim, struct_radius, n_iter, interp_order, need_det, E,
     out_dtype="float32", member_chunk=None, max_disp=None, pwl_match=False,
-    use_chain=False,
+    use_chain=False, use_full_fft=False, ssft_masks=None,
 ):
     """The forecast loop over ``int_steps`` lead times.  Returns the
     member-major (E, int_steps, m, n) output.
+
+    ``noise_filt`` is an (m, n//2+1) filter, an (m, n) full-plane one with
+    ``use_full_fft`` (spatial domain), or with ``ssft_masks`` (wy, wx, m,
+    n) the SSFT / nested stack and its composition masks.
 
     ``max_disp`` (static displacement bound or None), ``pwl_match`` (PWL
     matcher or sort matcher) and ``use_chain`` (the fused match+rim+warp
@@ -410,6 +445,7 @@ def _steps_scan(
                     generator, tuple(c[s] for c in cascades), phi, noise_filt,
                     noise_filt_shape, weights_2d, noise_std_coeffs,
                     means_last, stds_last, spectral, Ec,
+                    use_full_fft=use_full_fft, ssft_masks=ssft_masks,
                 )
                 new_lags.append(casc_j[-1])
             else:
@@ -488,6 +524,53 @@ def _steps_scan(
             mask_prec = gather(new_masks, mask_prec)
         displacement = gather(new_disps, displacement)
     return out
+
+
+def _noise_init(cfg, precip, precip_aligned, params, bp_filter, generator, shape):
+    """The scan's noise inputs: (filter, use_full_fft, SSFT masks or None,
+    per-level noise std coefficients (k,)).  The nonparametric filter comes
+    from the init; the other methods build theirs from the aligned inputs
+    on the forecast's device (JAX: ``pysteps_tpu/nowcasts/steps.py:664-719``).
+    ``"auto"`` draws its 20 noise realizations from ``generator``."""
+    m, n = shape
+    device = precip.device
+    k_levels = cfg.n_cascade_levels
+    noise_filt = params.noise_filter
+    use_full_fft = False
+    ssft_masks = None
+    noise_std_coeffs = torch.ones(k_levels, dtype=torch.float32, device=device)
+    if cfg.noise_method is None:
+        return noise_filt, use_full_fft, ssft_masks, noise_std_coeffs
+    if cfg.noise_method == "nonparametric":
+        pert_gen = {"field": noise_filt, "input_shape": (m, n), "use_full_fft": False}
+    else:
+        init_noise, _ = noise.get_method(cfg.noise_method)
+        pert_gen = init_noise(precip_aligned, **cfg.noise_kwargs)
+        noise_filt = pert_gen["field"].to(torch.float32)
+        use_full_fft = bool(pert_gen.get("use_full_fft", False))
+        if cfg.domain == "spectral" and use_full_fft and noise_filt.ndim == 2:
+            # the spectral AR state lives in rfft2 half-planes; a full-plane
+            # filter magnitude is Hermitian-symmetric, so its left half is
+            # the half-plane filter
+            noise_filt = noise_filt[:, : n // 2 + 1]
+            use_full_fft = False
+        if noise_filt.ndim == 4:  # SSFT / nested (wy, wx, m, n) stack
+            ssft_masks = fftgenerators._ssft_gen_masks(
+                noise_filt.shape, (m, n), pert_gen.get("overlap_gen", 0.2),
+                pert_gen.get("win_fun", "tukey"), device,
+            )
+    if cfg.noise_stddev_adj == "auto":
+        noise_std_coeffs = noise.utils.compute_noise_stddev_adjs(
+            precip[-1], cfg.precip_threshold, float(params.precip_min),
+            bp_filter, None, pert_gen, None, 20,
+            conditional=True, generator=generator,
+        ).to(torch.float32)
+    elif cfg.noise_stddev_adj == "fixed":
+        noise_std_coeffs = torch.tensor(
+            [1.0 / (0.75 + 0.09 * k) for k in range(1, k_levels + 1)],
+            dtype=torch.float32, device=device,
+        )
+    return noise_filt, use_full_fft, ssft_masks, noise_std_coeffs
 
 
 def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
@@ -583,8 +666,10 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
         vel_pert=vel_pert, n_iter=n_iter, interp_order=interp_order,
         noise_in_graph=noise_in_graph, max_disp=max_disp_align,
     )
+    noise_filt, use_full_fft, ssft_masks, noise_std_coeffs = _noise_init(
+        cfg, precip, precip_aligned, params, bp_filter, generator, (m, n)
+    )
     del precip_aligned
-    noise_std_coeffs = torch.ones(k_levels, dtype=torch.float32, device=device)
 
     member_chunk = (
         cfg.member_chunk if cfg.member_chunk and E % cfg.member_chunk == 0 else None
@@ -594,7 +679,7 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
     t_loop0 = time.time()
     out = _steps_scan(
         state.window, state.precip_mask, state.generator, velocity, params.phi,
-        params.noise_filter, (m, n), weights_2d, noise_std_coeffs,
+        noise_filt, (m, n), weights_2d, noise_std_coeffs,
         params.means, params.stds, params.precip_last, params.precip_min,
         precip_thr_f, params.war, params.mu_0, domain_mask,
         state.eps_par, state.eps_perp, params.velocity_unit, params.velocity_perp,
@@ -621,6 +706,8 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
             rim=(struct_radius or 1) + (mask_rim or 0)
             if cfg.mask_method == "incremental" else 0,
         ),
+        use_full_fft=use_full_fft,
+        ssft_masks=ssft_masks,
     )
     _sync(device)
     loop_time = time.time() - t_loop0
@@ -706,12 +793,12 @@ class StepsNowcaster:
             raise ValueError(
                 f"mask_method={cfg.mask_method} but precip_threshold is not set"
             )
-        if cfg.noise_method in _UNPORTED_NOISE:
-            raise NotImplementedError(f"noise_method={cfg.noise_method!r} is not ported yet")
-        if cfg.noise_method not in (None, "nonparametric"):
+        if cfg.noise_stddev_adj == "auto" and cfg.precip_threshold is None:
+            raise ValueError("noise_stddev_adj='auto' but precip_threshold not set")
+        if cfg.noise_stddev_adj not in ("auto", "fixed", None):
+            raise ValueError(f"unknown noise_stddev_adj {cfg.noise_stddev_adj}")
+        if cfg.noise_method not in _NOISE_METHODS:
             raise ValueError(f"unknown noise_method {cfg.noise_method}")
-        if cfg.noise_stddev_adj is not None:
-            raise NotImplementedError("noise_stddev_adj is not ported yet")
         if cfg.mesh is not None:
             raise NotImplementedError("mesh is not ported yet")
         if cfg.callback is not None and not cfg.return_output:

@@ -1,1 +1,8 @@
-from pysteps_tpu_torch.utils import check_norain, spectral, tapering  # noqa: F401
+from pysteps_tpu_torch.utils import (  # noqa: F401
+    arrays,
+    check_norain,
+    conversion,
+    spectral,
+    tapering,
+    transformation,
+)

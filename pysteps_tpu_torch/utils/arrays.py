@@ -1,0 +1,18 @@
+"""Array helpers (counterpart of ``pysteps_tpu/utils/arrays.py``)."""
+
+import numpy as np
+
+
+def compute_centred_coord_array(M, N):
+    """Open-grid (yc, xc) coordinates of an (M, N) grid with the origin at
+    the centre, broadcastable to (M, N)."""
+    if M % 2 == 1:
+        s1 = np.s_[-int(M / 2) : int(M / 2) + 1]
+    else:
+        s1 = np.s_[-int(M / 2) : int(M / 2)]
+    if N % 2 == 1:
+        s2 = np.s_[-int(N / 2) : int(N / 2) + 1]
+    else:
+        s2 = np.s_[-int(N / 2) : int(N / 2)]
+    yc, xc = np.ogrid[s1, s2]
+    return yc, xc

@@ -28,3 +28,39 @@ def check_norain(precip_arr, precip_thr=None, norain_thr=0.0, win_fun=None, prin
     if printmsg:
         print(f"Rain fraction is: {rain_frac}, while minimum fraction is {norain_thr}")
     return bool(norain)
+
+
+def check_previous_radar_obs(precip, ar_order, check_norain_kwargs=None):
+    """Trim the leading dry frames of the inputs before the AR fit and
+    lower ``ar_order`` to what is left; rain in the latest frame but none
+    in the one before is taken as clutter (a dry AR(2) input).  Returns
+    (numpy inputs, ar_order)."""
+    if isinstance(precip, torch.Tensor):
+        precip = precip.detach().cpu().numpy()
+    precip = np.asarray(precip)
+    if precip.shape[0] < 2:
+        raise ValueError("The radar input must have at least 2 time steps.")
+    kw = check_norain_kwargs or {}
+    norain_flags = [
+        check_norain(
+            obs, kw.get("precip_thr"), kw.get("norain_thr", 0.0), kw.get("win_fun"), False
+        )
+        for obs in precip
+    ]
+    if norain_flags[-1] or not np.any(norain_flags):
+        return precip, ar_order
+    if norain_flags[-2]:
+        precip = np.ones((3,) + precip.shape[1:]) * np.nanmin(precip)
+        print(
+            "[WARNING] Precip + no-precip in the 2 latest radar inputs; "
+            "set to zero-precip radar input."
+        )
+        return precip, 2
+    last_norain = int(np.max(np.nonzero(norain_flags)[0]))
+    precip = precip[last_norain + 1 :]
+    if precip.shape[0] - 1 < ar_order:
+        print(
+            f"[WARNING] Radar input only has {precip.shape[0]} usable steps; "
+            f"ar_order reduced to {precip.shape[0] - 1}."
+        )
+    return precip, min(ar_order, precip.shape[0] - 1)

@@ -42,3 +42,25 @@ def _tukey(R, alpha):
     )
     W[R >= 0.5] = 0.0
     return W
+
+
+def compute_mask_window_function(mask, func, **kwargs):
+    """Window of a non-rectangular domain given by a boolean mask: a Tukey
+    ramp over the distance to the nearest pixel outside the mask
+    (``r_max`` pixels wide), NaN outside.  The distance is SciPy's exact
+    Euclidean distance transform, on the host."""
+    from scipy.ndimage import distance_transform_edt
+
+    if func == "hann":
+        raise NotImplementedError("hann masked window not implemented")
+    if func != "tukey":
+        raise ValueError(f"invalid window function '{func}'")
+    mask = np.asarray(mask)
+    r_max = kwargs.get("r_max", 10.0)
+    R = distance_transform_edt(mask.astype(bool))
+    W = np.ones(mask.shape)
+    inside = mask.astype(bool)
+    ramp = inside & (R < r_max)
+    W[ramp] = 0.5 * (1.0 + np.cos(np.pi * (R[ramp] / r_max - 1.0)))
+    W[~inside] = np.nan
+    return W

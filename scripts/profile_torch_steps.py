@@ -1,9 +1,12 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
+                                           [--path A|F|G|H]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
-configuration of ``chip_smoke.py`` (96 members x 512^2 x 12 leads), once
+configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
+leads; ``--path F``, ``G`` or ``H``: that path of ``chip_smoke.py``, the
+parametric, SSFT or nested noise generator), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
@@ -35,7 +38,9 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import BENCH_KWARGS, N_LEADS, N_MEMBERS, SIDE, bench_inputs  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BENCH_KWARGS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs,
+)
 from pysteps_tpu_torch import nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
@@ -68,7 +73,12 @@ def main():
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
+    ap.add_argument("--path", choices=["A", *NOISE_PATHS], default="A",
+                    help="chip_smoke.py's path to run (F, G, H: the other noise generators)")
     args = ap.parse_args()
+    E, side, T, extra_kw = (
+        (N_MEMBERS, SIDE, N_LEADS, {}) if args.path == "A" else NOISE_PATHS[args.path]
+    )
     if args.no_chain:
         steps_mod._chain_available = lambda *a, **k: False
     if not torch.cuda.is_available():
@@ -77,16 +87,16 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    precip_db, velocity = bench_inputs(SIDE)
+    precip_db, velocity = bench_inputs(side)
     dev = torch.device("cuda")
     p = torch.as_tensor(precip_db, device=dev)
     v = torch.as_tensor(velocity, device=dev)
     steps = nowcasts.get_method("steps")
-    kw = dict(BENCH_KWARGS, measure_time=True)
+    kw = dict(BENCH_KWARGS, n_ens_members=E, measure_time=True, **extra_kw)
 
     def run(seed):
         t0 = time.time()
-        out, init_s, loop_s = steps(p, v, N_LEADS, **dict(kw, seed=seed))
+        out, init_s, loop_s = steps(p, v, T, **dict(kw, seed=seed))
         torch.cuda.synchronize()
         return time.time() - t0, init_s, loop_s, out
 
@@ -97,10 +107,12 @@ def main():
     took_chain = _kernels.LAUNCHES["chain_horiz"] > 0
     if took_chain == args.no_chain:
         raise AssertionError(f"--no-chain={args.no_chain}, launches {_kernels.LAUNCHES}")
+    torch.cuda.reset_peak_memory_stats()
     runs = [run(2 + i)[:3] for i in range(args.runs)]
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _, _, out = run(100)
-    if tuple(out.shape) != (N_MEMBERS, N_LEADS, SIDE, SIDE):
+    if tuple(out.shape) != (E, T, side, side):
         raise AssertionError(f"output shape {tuple(out.shape)}")
 
     kernels = [
@@ -117,16 +129,17 @@ def main():
           "ms": e.self_device_time_total / 1e3} for e in kernels),
         key=lambda r: -r["ms"],
     )
-    mfs = [N_MEMBERS * N_LEADS / r[0] for r in runs]
+    mfs = [E * T / r[0] for r in runs]
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"card": smi, "chain": not args.no_chain, "kernels": table}, f, indent=1)
+        json.dump({"card": smi, "path": args.path, "chain": not args.no_chain,
+                   "kernels": table}, f, indent=1)
     extra = {}
     if args.shapes:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=True) as prof_s:
             run(101)
-        field = [N_MEMBERS, SIDE * SIDE]
+        field = [E, side * side]
         extra["device_ms_on_lut_field_by_op"] = sorted(
             ({"op": e.key, "shapes": e.input_shapes, "count": e.count,
               "device_ms": e.device_time_total / 1e3}
@@ -136,13 +149,13 @@ def main():
             key=lambda r: -r["device_ms"],
         )
     print(json.dumps({
-        "card": smi, "torch": torch.__version__, "chain": not args.no_chain,
-        "shape": [N_MEMBERS, N_LEADS, SIDE, SIDE],
+        "card": smi, "torch": torch.__version__, "path": args.path, **extra_kw,
+        "chain": not args.no_chain, "shape": [E, T, side, side],
         "runs_wall_init_loop_s": runs,
         "member_frames_per_s": mfs,
         "member_frames_per_s_median": statistics.median(mfs),
         "member_frames_per_s_quartiles": statistics.quantiles(mfs, n=4) if len(mfs) > 1 else mfs,
-        "profiled_wall_s": wall,
+        "profiled_wall_s": wall, "max_memory_allocated": peak,
         "device_busy_ms": busy_us / 1e3 if kernels else "not measured",
         "device_idle_share": 1.0 - busy_us / 1e6 / wall if kernels else "not measured",
         "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1])),

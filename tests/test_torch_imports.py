@@ -79,3 +79,57 @@ def test_default_device_is_cuda(monkeypatch):
         resolve_device(None, precip)
     assert resolve_device(None, torch.zeros(1)).type == "cpu"
     assert resolve_device("cpu").type == "cpu"
+
+
+
+def _numpy_entry_points():
+    """(name, call) of the entry points that take numpy input; ``call``
+    takes the ``device`` keyword and returns the entry point's first
+    output tensor."""
+    from pysteps_tpu_torch.cascade import bandpass_filters, decomposition
+    from pysteps_tpu_torch.noise import fftgenerators, motion
+    from pysteps_tpu_torch.timeseries import autoregression as ar
+    from pysteps_tpu_torch.utils import conversion, spectral, transformation
+
+    rng = np.random.default_rng(3)
+    R = np.maximum(rng.gamma(0.8, 3.0, (32, 32)) - 1.0, 0.0).astype(np.float32)
+    meta = {"unit": "mm/h", "transform": None, "threshold": 0.1, "zerovalue": 0.0,
+            "accutime": 5.0}
+    series = rng.normal(size=(4, 8, 8)).astype(np.float32)
+    phi = np.array([[0.5, 0.2, 0.3]], np.float32)
+    return [
+        ("dB_transform", lambda device: transformation.dB_transform(R, device=device)[0]),
+        ("boxcox_transform",
+         lambda device: transformation.boxcox_transform(R, device=device)[0]),
+        ("sqrt_transform", lambda device: transformation.sqrt_transform(R, device=device)[0]),
+        ("NQ_transform", lambda device: transformation.NQ_transform(R, device=device)[0]),
+        ("to_rainrate", lambda device: conversion.to_rainrate(R, meta, device=device)[0]),
+        ("to_raindepth", lambda device: conversion.to_raindepth(R, meta, device=device)[0]),
+        ("to_reflectivity",
+         lambda device: conversion.to_reflectivity(R, meta, device=device)[0]),
+        ("remove_rain_norain_discontinuity",
+         lambda device: spectral.remove_rain_norain_discontinuity(R, device=device)),
+        ("decomposition_fft", lambda device: decomposition.decomposition_fft(
+            R, bandpass_filters.filter_gaussian(R.shape, 4), device=device)["cascade_levels"]),
+        ("estimate_ar_params_yw",
+         lambda device: ar.estimate_ar_params_yw([0.9, 0.7], device=device)),
+        ("estimate_ar_params_ols", lambda device: ar.estimate_ar_params_ols(
+            series, 1, check_stationarity=False, device=device)),
+        ("iterate_ar_model",
+         lambda device: ar.iterate_ar_model(series[None, -2:], phi, device=device)),
+        ("initialize_nonparam_2d_fft_filter", lambda device:
+         fftgenerators.initialize_nonparam_2d_fft_filter(R, device=device)["field"]),
+        ("initialize_bps", lambda device: motion.initialize_bps(
+            series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
+    ]
+
+
+@pytest.mark.parametrize("name", [n for n, _ in _numpy_entry_points()])
+def test_numpy_input_goes_to_cuda_by_default(name, monkeypatch):
+    """numpy input runs where the caller says: on the CPU with
+    ``device="cpu"``, else on the card, and so raises without CUDA."""
+    call = dict(_numpy_entry_points())[name]
+    assert call("cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(None)

@@ -247,11 +247,16 @@ def test_unported_options_raise():
     precip = _to_db(frames)
     f = tnowcasts.get_method("steps")
     for extra in (
-        dict(noise_method="parametric"), dict(noise_method="ssft"),
-        dict(noise_method="nested"), dict(noise_stddev_adj="auto"),
         dict(mesh=object()), dict(callback=lambda x: None, return_output=False),
     ):
         with pytest.raises(NotImplementedError):
+            f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
+    for extra in (
+        dict(noise_stddev_adj="sometimes"), dict(noise_stddev_adj="auto", precip_thr=None,
+                                                 mask_method=None),
+        dict(noise_method="pink"),
+    ):
+        with pytest.raises(ValueError):
             f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
     with pytest.raises(ValueError):
         tnowcasts.get_method("sprog")
