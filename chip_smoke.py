@@ -58,6 +58,20 @@ Phases, each printing JSON lines:
    ``noise_stddev_adj="auto"`` (F), SSFT and "fixed" (G), nested at 6
    leads (H), each with exactly path A's kernel launches at its lead
    count and an ensemble spread above 0 at every lead;
+12. paths I-M, the other nowcasts at the JAX bench's sizes (512^2, 12
+   leads): ``extrapolation`` of the last dB field (I), the exceedance
+   probability of 1 mm/h with slope 2 (J), S-PROG on 3 dB fields with 8
+   levels (K), ANVIL on 4 rain-rate fields with 8 levels (L) and SSEPS
+   with 24 members and windows of 256 (M), each timed once after a
+   warm-up with its exact launch counts and held against a CPU run of
+   the port on the same inputs: I and J through the CPU's exact gather;
+   K and M through the card's path on the CPU (the same displacement
+   bound and PWL map, the plain versions; M on the same white draws over
+   4 leads); L's loop from one init, K1 against the exact gather, and
+   its whole forecast; M's members must spread at every lead;
+13. path S: path A with a callback and ``return_output=False``, whose
+   numpy frames must equal a returning run with the same seed within
+   1e-5 at a lower peak device memory;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -80,7 +94,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from pysteps_tpu_torch import cascade as cascade_mod  # noqa: E402
 from pysteps_tpu_torch import noise, nowcasts  # noqa: E402
+from pysteps_tpu_torch.nowcasts import anvil as anvil_mod  # noqa: E402
+from pysteps_tpu_torch.nowcasts import sprog as sprog_mod  # noqa: E402
+from pysteps_tpu_torch.nowcasts import sseps as sseps_mod  # noqa: E402
 from pysteps_tpu_torch.noise import fftgenerators  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
@@ -105,6 +123,12 @@ NOISE_PATHS = {
     "G": (N_MEMBERS, SIDE, N_LEADS, dict(noise_method="ssft", noise_stddev_adj="fixed")),
     "H": (N_MEMBERS, SIDE, 6, dict(noise_method="nested")),
 }
+# the other nowcasts, at the JAX bench's sizes (bench.py:203-310, 12 leads):
+# SSEPS's members, its metadata, and the leads of its card-vs-CPU check
+SSEPS_MEMBERS = 24
+SSEPS_META = {"accutime": 5, "unit": "dBZ", "transform": "dB", "zerovalue": -15.0,
+              "threshold": -10.0, "xpixelsize": 1000.0, "ypixelsize": 1000.0}
+SSEPS_PARITY_LEADS = 4
 CDF_BINS = 129  # the CDF counts' histogram: k = 0..128 edges at or below a pixel
 # memory rate (bytes/s) and non-tensor-core f32 rate (FLOP/s) by card,
 # from NVIDIA's data sheets; the SXM part's figures are the default
@@ -139,6 +163,15 @@ def bench_inputs(side, velocity=(2.0, 1.0)):
     vel = np.zeros((2, side, side), np.float32)
     vel[0], vel[1] = velocity
     return precip_db, vel
+
+
+def bench_rain(side, n_frames=4):
+    """The other nowcasts' benchmark inputs in rain rate: four synthetic
+    frames, the same sequence as :func:`bench_inputs`' (``bench.py``'s
+    ``precip``)."""
+    return make_synthetic_sequence(
+        n_frames=n_frames, shape=(side, side), velocity=(2.0, 1.0), seed=42
+    ).astype(np.float32)
 
 
 BENCH_KWARGS = dict(
@@ -837,6 +870,12 @@ def phase_parity():
         raise AssertionError(f"parity: card and CPU disagree: {rec}")
 
 
+def _check_launches(label, launches, expected):
+    expected = dict(dict.fromkeys(launches, 0), **expected)
+    if launches != expected:
+        raise AssertionError(f"{label}: launches {launches} != expected {expected}")
+
+
 def _forecast_path(label, E, side, T, expected, name, smi, extra=None):
     """Drive ``nowcasts.get_method("steps")`` at ``E`` members x ``side``^2
     x ``T`` leads with the benchmark's configuration (updated by
@@ -875,9 +914,7 @@ def _forecast_path(label, E, side, T, expected, name, smi, extra=None):
     lo, hi = float(p[-1].min()), float(p[-1].max())
     if float(fin.min()) < lo - 1e-3 or float(fin.max()) > hi + 1e-3:
         raise AssertionError(f"{label}: matched values outside the target's range")
-    expected = dict(dict.fromkeys(launches, 0), **expected)
-    if launches != expected:
-        raise AssertionError(f"{label}: launches {launches} != expected {expected}")
+    _check_launches(label, launches, expected)
     # the members' standard deviation, averaged over each lead's pixels
     spread = torch.nanmean(out.std(dim=0).reshape(T, -1), dim=1).cpu().numpy()
     if not bool((spread > 0).all()):
@@ -932,9 +969,7 @@ def phase_paths(name, smi, captured):
     torch.cuda.synchronize()
     wall = time.time() - t0
     by_path["D"] = dict(_kernels.LAUNCHES)
-    expected = dict(dict.fromkeys(by_path["D"], 0), pwl_flat=1)
-    if by_path["D"] != expected:
-        raise AssertionError(f"D: launches {by_path['D']} != expected {expected}")
+    _check_launches("D", by_path["D"], {"pwl_flat": 1})
     gather = pallas_histmatch.match_cdf_pwl(fields, tstate)
     err = float((flat - gather).abs().max())
     if tuple(flat.shape) != tuple(fields.shape) or not bool(torch.isfinite(flat).all()):
@@ -964,9 +999,7 @@ def phase_paths(name, smi, captured):
     torch.cuda.synchronize()
     wall = time.time() - t0
     by_path["E"] = dict(_kernels.LAUNCHES)
-    expected = dict(dict.fromkeys(by_path["E"], 0), cdf_counts=1)
-    if by_path["E"] != expected:
-        raise AssertionError(f"E: launches {by_path['E']} != expected {expected}")
+    _check_launches("E", by_path["E"], {"cdf_counts": 1})
     n_px = field[0].numel()
     if tuple(counts.shape) != (field.shape[0], 128) or not bool(torch.isfinite(counts).all()):
         raise AssertionError(f"E: counts of shape {tuple(counts.shape)} or not finite")
@@ -1092,6 +1125,266 @@ def phase_noise_parity(name, smi):
         fftgenerators._white_normal = real_draw
 
 
+def _nanclose(label, card, cpu, rel, of_span=True, frac=None, mean_rel=None, max_rel=None):
+    """Raise unless the card's output and the CPU's have identical NaN sets
+    and differ by at most ``rel`` x span (x 1 without ``of_span``) at
+    every pixel, or, with ``frac``, at that share of the pixels, by at
+    most ``mean_rel`` x span on average and, with ``max_rel``, by at most
+    that x span anywhere; returns the comparison."""
+    c = torch.as_tensor(card).detach().cpu().double().numpy()
+    r = torch.as_tensor(cpu).detach().double().numpy()
+    if c.shape != r.shape:
+        raise AssertionError(f"{label}: card shape {c.shape} != CPU shape {r.shape}")
+    nan_c, nan_r = np.isnan(c), np.isnan(r)
+    if not np.array_equal(nan_c, nan_r):
+        raise AssertionError(f"{label}: NaN sets differ ({int((nan_c != nan_r).sum())} pixels)")
+    scale = float(np.nanmax(r) - np.nanmin(r)) if of_span else 1.0
+    diff = np.abs(np.nan_to_num(c) - np.nan_to_num(r))
+    rec = {"tol": rel, "of": "span" if of_span else "value", "scale": scale,
+           "max_abs_diff": float(diff.max()), "max_abs_diff_over_scale": float(diff.max() / scale),
+           "mean_abs_diff_over_scale": float(diff.mean() / scale),
+           "nan_fraction": float(nan_r.mean())}
+    if frac is None:
+        ok = diff.max() <= rel * scale
+    else:
+        rec["frac_within_tol"] = float((diff <= rel * scale).mean())
+        rec.update(frac_required=frac, mean_tol=mean_rel, max_tol=max_rel)
+        ok = rec["frac_within_tol"] >= frac and diff.mean() <= mean_rel * scale and (
+            max_rel is None or diff.max() <= max_rel * scale)
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU disagree: {rec}")
+    return rec
+
+
+def _timed_nowcast(label, f, args, kw, expected, frames):
+    """``f(*args, **kw)`` once to warm up, then timed with the launch
+    counts set to 0 just before and read just after (with
+    ``measure_time=True`` where ``f`` takes it).  Raises unless the counts
+    are ``expected``; returns (output, record)."""
+    f(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = takes_measure_time(f)
+    _kernels.reset_launches()
+    t0 = time.time()
+    res = f(*args, **dict(kw, measure_time=True)) if timed else f(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    out, init_s, loop_s = res if timed else (res, None, None)
+    _check_launches(label, launches, expected)
+    if torch.isinf(out).any():
+        raise AssertionError(f"{label}: infinite values in the output")
+    return out, {"wall_s": wall, "init_s": init_s, "loop_s": loop_s,
+                 "frames_per_s": frames / wall, "max_memory_allocated": peak,
+                 "launches": launches}
+
+
+def nowcast_path(label, dev):
+    """Path ``label`` (I-M) on ``dev``: (forecast function, positional
+    arguments, keyword arguments, frames a forecast makes)."""
+    precip_db, velocity = bench_inputs(SIDE)
+    rain = bench_rain(SIDE)
+    v = torch.as_tensor(velocity, device=dev)
+    T = N_LEADS
+    if label == "I":  # the bench's LK flow replaced by the given velocity
+        return (nowcasts.get_method("extrapolation"),
+                (torch.as_tensor(precip_db[-1], device=dev), v, T), {}, T)
+    if label == "J":
+        return (nowcasts.get_method("lagrangian_probability"),
+                (torch.as_tensor(rain[2], device=dev), v, T), dict(threshold=1.0, slope=2), T)
+    if label == "K":
+        return (nowcasts.get_method("sprog"), (torch.as_tensor(precip_db, device=dev), v, T),
+                dict(n_cascade_levels=8, precip_thr=-10.0), T)
+    if label == "L":
+        return (nowcasts.get_method("anvil"), (torch.as_tensor(rain, device=dev), v, T),
+                dict(n_cascade_levels=8), T)
+    E = SSEPS_MEMBERS
+    return (nowcasts.get_method("sseps"),
+            (torch.as_tensor(precip_db, device=dev), dict(SSEPS_META), v, T),
+            dict(n_ens_members=E, n_cascade_levels=6, win_size=SIDE // 2,
+                 vel_pert_method=None, seed=43), E * T)
+
+
+def takes_measure_time(f):
+    return "measure_time" in f.__code__.co_varnames[:f.__code__.co_argcount]
+
+
+def phase_nowcasts(name, smi):
+    """Paths I-M: the extrapolation, Lagrangian probability, S-PROG, ANVIL
+    and SSEPS nowcasts through ``nowcasts.get_method`` at the JAX bench's
+    sizes, each timed with its exact launch counts and held against a CPU
+    run of the port on the same inputs; returns the counts by path."""
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    T = N_LEADS
+    precip_db, velocity = bench_inputs(SIDE)
+    rain = bench_rain(SIDE)
+    v = torch.as_tensor(velocity, device=dev)
+    common = {"device": name, "nvidia_smi": smi}
+    by_path = {}
+    k1 = 3 * T  # per lead: two velocity samples and the warp, one launch an axis each
+
+    # I: 12-lead extrapolation of the last dB field (the bench's LK flow
+    # replaced by the given velocity: motion/ is not ported)
+    f, args, kw, frames = nowcast_path("I", dev)
+    out, rec = _timed_nowcast("I", f, args, kw, {"resample_axis0": k1, "resample_axis1": k1},
+                              frames)
+    ref = f(precip_db[-1], velocity, T, device="cpu")
+    held = _nanclose("I", out, ref, 1e-4)
+    by_path["I"] = rec["launches"]
+    emit({"phase": "path I", "shape": list(out.shape), **rec, "card_vs_cpu": held, **common})
+
+    # J: exceedance probability of 1 mm/h from the rain rate, slope 2
+    f, args, kw, frames = nowcast_path("J", dev)
+    out, rec = _timed_nowcast("J", f, args, kw, {"resample_axis0": k1, "resample_axis1": k1},
+                              frames)
+    ref = f(rain[2], velocity, T, threshold=1.0, slope=2, device="cpu")
+    # cuFFT and the CPU's FFT round the window sums differently by about
+    # 1e-7 of the largest sum; where few valid pixels share a window (the
+    # inflow band) that reaches 1e-4 of a probability
+    held = _nanclose("J", out, ref, 1e-4, of_span=False, frac=0.999, mean_rel=1e-6,
+                     max_rel=1e-3)
+    by_path["J"] = rec["launches"]
+    emit({"phase": "path J", "shape": list(out.shape), **rec, "card_vs_cpu": held, **common})
+
+    # K: S-PROG on 3 dB fields, 8 levels; the init aligns with K1 too
+    # (2 unit steps of 2 samples and one warp); the CPU runs the card's
+    # path (bound 48, PWL map) through the plain versions
+    f, args, kw, frames = nowcast_path("K", dev)
+    k1_k = AR_ORDER * 2 + 1 + k1
+    out, rec = _timed_nowcast("K", f, args, kw, {"resample_axis0": k1_k,
+                                                 "resample_axis1": k1_k, "pwl_gather": T},
+                              frames)
+    card_path = sprog_mod._scan_path(dev, (SIDE, SIDE), v, T)
+    real_path = sprog_mod._scan_path
+    sprog_mod._scan_path = lambda *a: card_path
+    try:
+        ref = f(precip_db, velocity, T, device="cpu", **kw)
+    finally:
+        sprog_mod._scan_path = real_path
+    held = _nanclose("K", out, ref, 1e-3, frac=0.999, mean_rel=1e-4)
+    by_path["K"] = rec["launches"]
+    emit({"phase": "path K", "shape": list(out.shape), **rec, "path": list(card_path),
+          "card_vs_cpu": held, **common})
+
+    # L: ANVIL on 4 rain-rate fields as VIL, 8 levels; the loop's bound
+    # comes from the velocity (the init takes the exact gather on both)
+    f, args, kw, frames = nowcast_path("L", dev)
+    out, rec = _timed_nowcast("L", f, args, kw, {"resample_axis0": k1, "resample_axis1": k1},
+                              frames)
+    ref = f(rain, velocity, T, device="cpu", **kw)
+    whole = _nanclose("L whole forecast", out, ref, 1e-3, frac=0.999, mean_rel=1e-6)
+    # the warp alone: the loop from the CPU's init, K1 against the exact gather
+    w = torch.tensor(cascade_mod.get_method("gaussian")((SIDE, SIDE), 8)["weights_2d"],
+                     dtype=torch.float32)
+    rain_t, vel_t = torch.as_tensor(rain), torch.as_tensor(velocity)
+    window0, phi, mask, rr_mask = anvil_mod._anvil_init(
+        rain_t, vel_t, w, torch.ones((SIDE, SIDE), dtype=torch.bool), 2, 50, 1, 1)
+    zeros = torch.zeros((SIDE, SIDE))
+    dom = torch.zeros((SIDE, SIDE), dtype=torch.bool)
+    max_disp = max(int(np.ceil(T * (float(vel_t.abs().max()) + 0.5))) + 2, 3)
+    scans = [anvil_mod._anvil_scan(*[x.to(d) for x in (window0, vel_t, phi, mask, rr_mask,
+                                                        zeros, zeros, dom)],
+                                   T, False, True, 1, 1, max_disp=md)
+             for d, md in ((dev, max_disp), (cpu, None))]
+    held = _nanclose("L", scans[0], scans[1], 1e-4)
+    by_path["L"] = rec["launches"]
+    emit({"phase": "path L", "shape": list(out.shape), **rec, "max_disp": max_disp,
+          "card_vs_cpu": held, "card_vs_cpu_whole_forecast": whole, **common})
+
+    # M: SSEPS, 24 members, windows of 256, 6 levels, no velocity
+    # perturbation: per lead two coarse velocity samples (K1), the match
+    # (K3), the rim (K4 from a field) and the warp (K2); the init's rim
+    # from a mask
+    f, args, kw, frames = nowcast_path("M", dev)
+    E = SSEPS_MEMBERS
+    out, rec = _timed_nowcast("M", f, args, kw, {
+        "resample_axis0": 2 * T, "resample_axis1": 2 * T, "warp": T, "pwl_gather": T,
+        "rim_from_field": T, "rim_from_mask": 1}, frames)
+    spread = torch.nanmean(out.std(dim=0).reshape(T, -1), dim=1).cpu().numpy()
+    if not bool((spread > 0).all()):
+        raise AssertionError(f"M: no ensemble spread at some lead: {spread.tolist()}")
+    fin = out[torch.isfinite(out)]
+    value_range = [float(fin.min()), float(fin.max())]
+    # the card's path on the CPU (the same bound and PWL map through the
+    # plain versions), both on the same white draws, over the first leads
+    Tp = SSEPS_PARITY_LEADS
+    vmax = float(np.abs(velocity).max())
+    card_path = sseps_mod._scan_path(dev, (SIDE, SIDE), vmax, Tp)
+    gen = torch.Generator().manual_seed(11)
+    draws = [torch.randn((E, SIDE, SIDE), generator=gen) for _ in range(Tp)]
+    real_white, real_path = fftgenerators._white_normal, sseps_mod._scan_path
+    runs = []
+    try:
+        for d in (dev, cpu):
+            it = iter(draws)
+            fftgenerators._white_normal = lambda g, shape, batch: next(it).to(g.device)
+            sseps_mod._scan_path = lambda *a: card_path
+            t0 = time.time()
+            runs.append(f(precip_db, dict(SSEPS_META), velocity, Tp, device=d, **kw))
+            runs[-1] = (runs[-1].cpu(), time.time() - t0)
+    finally:
+        fftgenerators._white_normal, sseps_mod._scan_path = real_white, real_path
+    held = _nanclose("M", runs[0][0], runs[1][0], 1e-3, frac=0.999, mean_rel=1e-4)
+    by_path["M"] = rec["launches"]
+    emit({"phase": "path M", "shape": list(out.shape), **rec,
+          "member_frames_per_s": E * T / rec["wall_s"], "spread_per_lead": spread.tolist(),
+          "value_range": value_range,
+          "observation_range": [float(precip_db[-1].min()), float(precip_db[-1].max())],
+          "path": list(card_path), "card_vs_cpu": dict(held, leads=Tp, card_s=runs[0][1],
+                                                       cpu_s=runs[1][1]), **common})
+    return by_path
+
+
+def phase_streaming(name, smi, expected):
+    """Path S: path A with a callback and ``return_output=False``: chunks
+    of at most 6 leads reach the host, the frames equal a returning run
+    of A with the same seed within 1e-5 (the JAX package's own test of
+    the mode), and the peak device memory is lower than that run's."""
+    dev = torch.device("cuda")
+    precip_db, velocity = bench_inputs(SIDE)
+    p = torch.as_tensor(precip_db, device=dev)
+    v = torch.as_tensor(velocity, device=dev)
+    f = nowcasts.get_method("steps")
+    kw = dict(BENCH_KWARGS, seed=44)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    full = f(p, v, N_LEADS, **kw).cpu().numpy()
+    peak_full = torch.cuda.max_memory_allocated()
+    frames = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.time()
+    res, init_s, loop_s = f(p, v, N_LEADS, callback=frames.append, return_output=False,
+                            measure_time=True, **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches("S", launches, expected)
+    if res is not None or len(frames) != N_LEADS:
+        raise AssertionError(f"S: returned {type(res)} with {len(frames)} frames")
+    if not all(isinstance(fr, np.ndarray) for fr in frames):
+        raise AssertionError("S: the callback did not get numpy frames")
+    streamed = np.stack(frames, axis=1)
+    if not np.array_equal(np.isnan(streamed), np.isnan(full)):
+        raise AssertionError("S: NaN sets of the streamed and the full run differ")
+    err = float(np.nanmax(np.abs(streamed - full)))
+    if err > 1e-5:
+        raise AssertionError(f"S: streamed frames differ from the full run by {err}")
+    if peak >= peak_full:
+        raise AssertionError(f"S: peak memory {peak} not below the full run's {peak_full}")
+    emit({"phase": "path S", "shape": list(streamed.shape), "max_abs_diff_vs_full": err,
+          "atol": 1e-5, "max_memory_allocated": peak, "max_memory_allocated_full": peak_full,
+          "member_frames_per_s": N_MEMBERS * N_LEADS / wall, "wall_s": wall,
+          "init_s": init_s, "loop_s": loop_s, "launches": launches,
+          "device": name, "nvidia_smi": smi})
+    return launches
+
+
 def main():
     name, smi = phase_device()
     peaks = card_peaks(name)
@@ -1101,6 +1394,8 @@ def main():
     phase_parity()
     phase_noise_parity(name, smi)
     by_path = phase_paths(name, smi, captured)
+    by_path.update(phase_nowcasts(name, smi))
+    by_path["S"] = phase_streaming(name, smi, by_path["A"])
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

@@ -6,11 +6,15 @@ batch axes (members) are carried through.  With a static displacement
 bound ``max_disp`` the velocity sampling and the field warp run through
 kernels K1 (``ops/pallas_warp.py::axis_resample``) and K2
 (``ops/pallas_warp.py::warp_fused``); without one, through the exact
-bilinear gather.
+bilinear gather.  ``extrapolate`` is the public lead loop (a Python loop
+where the JAX package has a ``lax.scan``); ``semilag_step`` one
+incremental step.
 """
 
+import numpy as np
 import torch
 
+from pysteps_tpu_torch._device import resolve_device
 from pysteps_tpu_torch.ops.pallas_warp import warp_fused
 from pysteps_tpu_torch.ops.warp import (
     bilinear_upsample,
@@ -139,3 +143,130 @@ def model_warp_coarse(
         interp_order=interp_order,
         cval=cval,
     )
+
+
+def semilag_step(
+    field,
+    velocity,
+    displacement,
+    td=1.0,
+    n_iter=1,
+    vel_timestep=1.0,
+    interp_order=1,
+    outval=float("nan"),
+):
+    """One incremental semi-Lagrangian step: integrate the displacement
+    over ``td`` and warp ``field`` along it (exact gather).  Returns
+    (warped, displacement)."""
+    displacement = integrate_displacement(
+        velocity, displacement, td, n_iter=n_iter, vel_timestep=vel_timestep
+    )
+    warped = warp(field, displacement, order=interp_order, cval=outval)
+    return warped, displacement
+
+
+def _extrapolate_core(
+    field, velocity, timestep_diffs, n_iter, interp_order, outval,
+    displacement_init, vel_timestep, max_disp=None,
+):
+    """The lead loop: one displacement step and one warp of ``field`` per
+    entry of ``timestep_diffs``.  Returns ((T, m, n) fields, the last
+    displacement)."""
+    displacement = displacement_init
+    fields = []
+    for td in timestep_diffs:
+        displacement = integrate_displacement(
+            velocity, displacement, td, n_iter=n_iter,
+            vel_timestep=vel_timestep, max_disp=max_disp,
+        )
+        fields.append(
+            model_warp(
+                field, displacement, max_disp=max_disp,
+                interp_order=interp_order, cval=outval,
+            )
+        )
+    return torch.stack(fields), displacement
+
+
+def extrapolate(
+    precip,
+    velocity,
+    timesteps,
+    outval=np.nan,
+    xy_coords=None,
+    allow_nonfinite_values=False,
+    vel_timestep=1,
+    device=None,
+    **kwargs,
+):
+    """Semi-Lagrangian extrapolation with the JAX package's signature plus
+    ``device`` (CUDA unless the caller asks for the CPU or passes CPU
+    tensors).
+
+    ``timesteps``: an int (that many unit steps) or an ascending list of
+    lead times.  Other kwargs: ``displacement_prev``, ``n_iter``,
+    ``return_displacement``, ``interp_order`` (0, 1 or 3).  On the card,
+    bilinear on a grid of at least 144 pixels a side, the displacement
+    and the warp take the shift decomposition with the static bound 48
+    (kernel K1); elsewhere the exact gather.  Returns (T, m, n) fields
+    and, with ``return_displacement``, the (2, m, n) displacement."""
+    del xy_coords, allow_nonfinite_values  # grid in pixels; NaN propagates
+    displacement_prev = kwargs.get("displacement_prev", None)
+    n_iter = kwargs.get("n_iter", 1)
+    return_displacement = kwargs.get("return_displacement", False)
+    interp_order = kwargs.get("interp_order", 1)
+
+    if interp_order not in (0, 1, 3):
+        raise NotImplementedError("interp_order must be 0, 1 or 3")
+    if precip is None and not return_displacement:
+        raise ValueError("precip is None but return_displacement is False")
+    device = resolve_device(device, precip, velocity, displacement_prev)
+    velocity = torch.as_tensor(velocity, dtype=torch.float32, device=device)
+
+    if isinstance(timesteps, int):
+        timestep_list = np.arange(1, timesteps + 1, dtype=np.float64)
+        vel_timestep = 1.0
+    else:
+        timestep_list = np.asarray(timesteps, dtype=np.float64)
+        if np.any(np.diff(timestep_list) <= 0.0):
+            raise ValueError("the timestep sequence is not monotonically increasing")
+    # float32 intervals and velocity time step, as the JAX scan sees them
+    timestep_diffs = np.hstack([[timestep_list[0]], np.diff(timestep_list)]).astype(
+        np.float32
+    )
+
+    if precip is not None:
+        precip = torch.as_tensor(precip, dtype=torch.float32, device=device)
+        if isinstance(outval, str) and outval == "min":
+            outval = float(torch.where(torch.isnan(precip), float("inf"), precip).min())
+    else:
+        outval = np.nan
+
+    if displacement_prev is not None:
+        displacement_init = torch.as_tensor(
+            displacement_prev, dtype=torch.float32, device=device
+        )
+    else:
+        displacement_init = torch.zeros_like(velocity)
+
+    field = precip if precip is not None else torch.zeros(
+        velocity.shape[1:], dtype=torch.float32, device=device
+    )
+    # the JAX package's static bound on accelerators, keyed here on the
+    # field's device: the card takes K1, the CPU the exact gather
+    m, n = velocity.shape[1:]
+    max_disp = (
+        48
+        if device.type == "cuda" and int(interp_order) == 1 and min(m, n) >= 3 * 48
+        else None
+    )
+    fields, displacement = _extrapolate_core(
+        field, velocity, [float(td) for td in timestep_diffs], int(n_iter),
+        int(interp_order), float(np.float32(outval)), displacement_init,
+        float(np.float32(vel_timestep)), max_disp,
+    )
+    if precip is None:
+        return None, displacement
+    if return_displacement:
+        return fields, displacement
+    return fields

@@ -1,2 +1,10 @@
-from pysteps_tpu_torch.nowcasts import steps, utils  # noqa: F401
+from pysteps_tpu_torch.nowcasts import (  # noqa: F401
+    anvil,
+    extrapolation,
+    lagrangian_probability,
+    sprog,
+    sseps,
+    steps,
+    utils,
+)
 from pysteps_tpu_torch.nowcasts.interface import get_method  # noqa: F401

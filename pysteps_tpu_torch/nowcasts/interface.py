@@ -1,10 +1,33 @@
 """Nowcast-method registry (counterpart of
-``pysteps_tpu/nowcasts/interface.py``); STEPS is the ported method."""
+``pysteps_tpu/nowcasts/interface.py``): every method of the JAX package's
+registry but ``linda``."""
 
-from pysteps_tpu_torch.nowcasts import steps
+from pysteps_tpu_torch.nowcasts import (
+    anvil,
+    extrapolation,
+    lagrangian_probability,
+    sprog,
+    sseps,
+    steps,
+)
+
+
+def _eulerian_forecast(precip, velocity, timesteps, **kwargs):
+    from pysteps_tpu_torch.extrapolation.interface import eulerian_persistence
+
+    return eulerian_persistence(precip, velocity, timesteps, **kwargs)
+
 
 _nowcast_methods = {
+    "eulerian": _eulerian_forecast,
+    "extrapolation": extrapolation.forecast,
+    "lagrangian": extrapolation.forecast,
+    "lagrangian_probability": lagrangian_probability.forecast,
+    "probability": lagrangian_probability.forecast,
+    "sprog": sprog.forecast,
     "steps": steps.forecast,
+    "anvil": anvil.forecast,
+    "sseps": sseps.forecast,
 }
 
 
@@ -16,5 +39,5 @@ def get_method(name):
         return _nowcast_methods[name.lower()]
     except KeyError:
         raise ValueError(
-            f"unknown nowcast method {name}; available: {list(_nowcast_methods)}"
+            f"unknown nowcasting method {name}; available: {list(_nowcast_methods)}"
         ) from None

@@ -23,9 +23,10 @@ The JAX package's design carries over with PyTorch idiom:
 
 Every noise method of the JAX package runs (nonparametric, parametric,
 ssft, nested, or none) with either ``noise_stddev_adj`` ("auto",
-"fixed"); the filters are built on the forecast's device.  Not ported
-(they raise ``NotImplementedError``): ``mesh`` and the streaming callback
-path (``callback`` with ``return_output=False``).
+"fixed"); the filters are built on the forecast's device.  The callback
+gets each lead's frames as host numpy arrays; with ``return_output=False``
+they stream in chunks of at most 6 leads and the forecast returns None.
+Not ported (it raises ``NotImplementedError``): ``mesh``.
 """
 
 import dataclasses
@@ -158,6 +159,16 @@ def params_from_numpy(params, state, device, seed):
         eps_perp=t(state["eps_perp"]),
     )
     return p, s
+
+
+def tree_from_numpy(tree, device):
+    """Tensors on ``device`` from an init state of the JAX package given as
+    numpy arrays or scalars, nested in tuples and lists (S-PROG's
+    ``_sprog_init`` outputs, ANVIL's parameter maps, SSEPS's window AR
+    states and parameters), with the same nesting."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_from_numpy(x, device) for x in tree)
+    return torch.as_tensor(np.array(tree), device=torch.device(device))
 
 
 def noise_from_numpy(noise_filt, ssft_masks, noise_std_coeffs, device):
@@ -373,10 +384,13 @@ def _steps_scan(
     int_steps, noise, mask_method, probmatching, domain, vel_pert,
     timestep_min, mask_rim, struct_radius, n_iter, interp_order, need_det, E,
     out_dtype="float32", member_chunk=None, max_disp=None, pwl_match=False,
-    use_chain=False, use_full_fft=False, ssft_masks=None,
+    use_chain=False, use_full_fft=False, ssft_masks=None, callback=None, t_chunk=None,
 ):
     """The forecast loop over ``int_steps`` lead times.  Returns the
-    member-major (E, int_steps, m, n) output.
+    member-major (E, int_steps, m, n) output; with ``callback``, hands
+    each lead's (E, m, n) frames to it as host numpy arrays, fetched every
+    ``t_chunk`` leads from a buffer of that many, and returns None (the
+    loop's state carries over from chunk to chunk).
 
     ``noise_filt`` is an (m, n//2+1) filter, an (m, n) full-plane one with
     ``use_full_fft`` (spatial domain), or with ``ssft_masks`` (wy, wx, m,
@@ -413,7 +427,9 @@ def _steps_scan(
     displacement = torch.zeros(
         (E, 2, m // coarse, n // coarse), dtype=torch.float32, device=dev
     )
-    out = torch.zeros((E, int_steps, m, n), dtype=getattr(torch, out_dtype), device=dev)
+    buf_leads = min(t_chunk, int_steps) if callback is not None else int_steps
+    out = torch.zeros((E, buf_leads, m, n), dtype=getattr(torch, out_dtype), device=dev)
+    t0 = 0
     mc = member_chunk if member_chunk and member_chunk < E else E
     chunks = [slice(c0, c0 + mc) for c0 in range(0, E, mc)]
 
@@ -516,14 +532,17 @@ def _steps_scan(
                     field, disp_j, shape, coarse, max_disp=max_disp,
                     interp_order=interp_order, cval=float("nan"),
                 )
-            out[s, t] = torch.where(domain_mask, float("nan"), out_field).to(out.dtype)
+            out[s, t - t0] = torch.where(domain_mask, float("nan"), out_field).to(out.dtype)
 
         if noise:
             cascades = cascades[1:] + (gather(new_lags, cascades[-1]),)
         if mask_method == "incremental":
             mask_prec = gather(new_masks, mask_prec)
         displacement = gather(new_disps, displacement)
-    return out
+        if callback is not None and (t + 1 - t0 == buf_leads or t + 1 == int_steps):
+            nowcast_utils.stream_leads(out, t + 1 - t0, callback)
+            t0 = t + 1
+    return None if callback is not None else out
 
 
 def _noise_init(cfg, precip, precip_aligned, params, bp_filter, generator, shape):
@@ -574,7 +593,8 @@ def _noise_init(cfg, precip, precip_aligned, params, bp_filter, generator, shape
 
 
 def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
-    """Initialization + loop.  Returns (out (E, T, m, n), init_s, loop_s)."""
+    """Initialization + loop.  Returns (out (E, T, m, n), init_s, loop_s),
+    with out None when the loop streamed its frames to the callback."""
     t_init0 = time.time()
     m, n = precip.shape[1:]
     p = cfg.ar_order
@@ -677,6 +697,9 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
     _sync(device)
     init_time = time.time() - t_init0
     t_loop0 = time.time()
+    # the streaming contract: chunks of at most 6 leads reach the callback
+    # and leave the device, so it never holds E x T frames
+    stream = cfg.callback is not None and not cfg.return_output and subsel is None
     out = _steps_scan(
         state.window, state.precip_mask, state.generator, velocity, params.phi,
         noise_filt, (m, n), weights_2d, noise_std_coeffs,
@@ -708,23 +731,14 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
         ),
         use_full_fft=use_full_fft,
         ssft_masks=ssft_masks,
+        callback=cfg.callback if stream else None,
+        t_chunk=6,
     )
     _sync(device)
     loop_time = time.time() - t_loop0
 
     if subsel is not None:
-        # fractional lead times interpolate linearly between integer steps
-        frames = []
-        for t_sub in subsel:
-            t_int = int(np.ceil(t_sub))
-            if t_sub == int(t_sub):
-                frames.append(out[:, int(t_sub) - 1])
-            else:
-                lo = out[:, t_int - 2] if t_int >= 2 else out[:, 0]
-                hi = out[:, t_int - 1]
-                w = t_sub - (t_int - 1)
-                frames.append((1 - w) * lo + w * hi)
-        out = torch.stack(frames, dim=1)
+        out = nowcast_utils.interpolate_leads(out, subsel, axis=1)
     return out, init_time, loop_time
 
 
@@ -765,12 +779,12 @@ class StepsNowcaster:
             self.timesteps, cfg, torch.as_tensor(domain_mask, device=self.device),
             self.device,
         )
-        if cfg.callback is not None:
-            for t in range(out.shape[1]):
-                cfg.callback(out[:, t])
+        if cfg.callback is not None and out is not None:
+            nowcast_utils.stream_leads(out, out.shape[1], cfg.callback)
+        result = out if cfg.return_output else None
         if cfg.measure_time:
-            return out, init_time, loop_time
-        return out
+            return result, init_time, loop_time
+        return result
 
     def _check_inputs(self):
         cfg = self.config
@@ -801,10 +815,6 @@ class StepsNowcaster:
             raise ValueError(f"unknown noise_method {cfg.noise_method}")
         if cfg.mesh is not None:
             raise NotImplementedError("mesh is not ported yet")
-        if cfg.callback is not None and not cfg.return_output:
-            raise NotImplementedError(
-                "the streaming callback path (return_output=False) is not ported yet"
-            )
         if cfg.domain not in ("spatial", "spectral"):
             raise ValueError(f"unknown domain {cfg.domain}")
         if cfg.velocity_perturbation_method not in (None, "bps"):
@@ -858,7 +868,10 @@ def forecast(
     """STEPS nowcast with the JAX package's signature plus ``device``.
     Returns an (n_ens_members, T, m, n) tensor on ``device``: CUDA unless
     the caller asks for the CPU (or passes CPU tensors); raises
-    ``RuntimeError`` when CUDA is needed and absent."""
+    ``RuntimeError`` when CUDA is needed and absent.  ``callback`` gets
+    each lead's (E, m, n) frames as host numpy arrays; with
+    ``return_output=False`` (and an int ``timesteps``) the loop streams
+    them in chunks of at most 6 leads and returns None."""
     device = resolve_device(device, precip, velocity)
     config = StepsNowcasterConfig(
         n_ens_members=n_ens_members,

@@ -4,8 +4,9 @@ Backward-warp primitives of semi-Lagrangian advection
 
 Two families:
 
-- the exact bilinear gather (``bilinear_warp`` / ``warp``): the path the
-  JAX package takes on the CPU, and the port's path for CPU tensors;
+- the exact gathers (``nearest_warp``, ``bilinear_warp``, ``cubic_warp``
+  and ``warp`` of order 0, 1 or 3): the path the JAX package takes on
+  the CPU, and the port's path for CPU tensors and for orders 0 and 3;
 - the shift-decomposition warp (``warp_shifted``, ``warp_shifted_multi``,
   ``sample_velocity_shifted``) with a static displacement bound: a
   vertical then a horizontal linear resample, each through kernel K1
@@ -31,13 +32,38 @@ def _grid(m, n, like):
     return yy, xx
 
 
+def _sampler(field, coords_y):
+    """(lead, gather) for sampling ``field`` (..., m, n) at coordinates
+    shaped like ``coords_y``: ``gather(yi, xi)`` reads the edge-clamped
+    integer positions of every leading index."""
+    m, n = field.shape[-2:]
+    lead = torch.broadcast_shapes(field.shape[:-2], coords_y.shape[:-2])
+    flat = field.expand(lead + (m, n)).reshape(-1, m * n)
+
+    def gather(yi, xi):
+        idx = torch.clamp(yi, 0, m - 1) * n + torch.clamp(xi, 0, n - 1)
+        return torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(
+            lead + (m, n)
+        )
+
+    return lead, gather
+
+
+def _fill_outside(out, cy, cx, m, n, mode, cval):
+    """scipy's "constant" rule: samples outside [0, m-1] x [0, n-1] take
+    ``cval``; "nearest" keeps the edge-clamped value."""
+    if mode == "constant":
+        inside = (cy >= 0) & (cy <= m - 1) & (cx >= 0) & (cx <= n - 1)
+        out = torch.where(inside, out, float(cval))
+    return out
+
+
 def bilinear_warp(field, coords_y, coords_x, mode="constant", cval=float("nan")):
     """Sample ``field`` (..., m, n) at fractional coordinates (..., m, n).
     mode "constant" fills samples outside [0, m-1] x [0, n-1] with
     ``cval``; "nearest" clamps to the edge."""
     m, n = field.shape[-2:]
-    lead = torch.broadcast_shapes(field.shape[:-2], coords_y.shape[:-2])
-    flat = field.expand(lead + (m, n)).reshape(-1, m * n)
+    lead, gather = _sampler(field, coords_y)
     cy = coords_y.expand(lead + (m, n))
     cx = coords_x.expand(lead + (m, n))
     y0 = torch.floor(cy)
@@ -46,13 +72,6 @@ def bilinear_warp(field, coords_y, coords_x, mode="constant", cval=float("nan"))
     wx = cx - x0
     y0i = y0.long()
     x0i = x0.long()
-
-    def gather(yi, xi):
-        idx = torch.clamp(yi, 0, m - 1) * n + torch.clamp(xi, 0, n - 1)
-        return torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(
-            lead + (m, n)
-        )
-
     f00 = gather(y0i, x0i)
     f01 = gather(y0i, x0i + 1)
     f10 = gather(y0i + 1, x0i)
@@ -60,21 +79,64 @@ def bilinear_warp(field, coords_y, coords_x, mode="constant", cval=float("nan"))
     top = f00 * (1.0 - wx) + f01 * wx
     bot = f10 * (1.0 - wx) + f11 * wx
     out = top * (1.0 - wy) + bot * wy
-    if mode == "constant":
-        inside = (cy >= 0) & (cy <= m - 1) & (cx >= 0) & (cx <= n - 1)
-        out = torch.where(inside, out, float(cval))
-    return out
+    return _fill_outside(out, cy, cx, m, n, mode, cval)
+
+
+def nearest_warp(field, coords_y, coords_x, mode="constant", cval=float("nan")):
+    """Nearest-neighbour sampling (``interp_order=0``): coordinates round
+    half to even, and "constant" tests the rounded position."""
+    m, n = field.shape[-2:]
+    lead, gather = _sampler(field, coords_y)
+    yi = torch.round(coords_y.expand(lead + (m, n))).long()
+    xi = torch.round(coords_x.expand(lead + (m, n))).long()
+    return _fill_outside(gather(yi, xi), yi, xi, m, n, mode, cval)
+
+
+def _catmull_rom_weights(t):
+    """Catmull-Rom cubic weights of the 4 taps around fraction ``t``."""
+    t2 = t * t
+    t3 = t2 * t
+    w0 = -0.5 * t3 + t2 - 0.5 * t
+    w1 = 1.5 * t3 - 2.5 * t2 + 1.0
+    w2 = -1.5 * t3 + 2.0 * t2 + 0.5 * t
+    w3 = 0.5 * t3 - 0.5 * t2
+    return w0, w1, w2, w3
+
+
+def cubic_warp(field, coords_y, coords_x, mode="constant", cval=float("nan")):
+    """Catmull-Rom bicubic sampling (``interp_order=3``) over the 4 x 4
+    edge-clamped taps around each position; "constant" tests the
+    fractional position, as the bilinear warp does."""
+    m, n = field.shape[-2:]
+    lead, gather = _sampler(field, coords_y)
+    cy = coords_y.expand(lead + (m, n))
+    cx = coords_x.expand(lead + (m, n))
+    y0 = torch.floor(cy)
+    x0 = torch.floor(cx)
+    wy = _catmull_rom_weights(cy - y0)
+    wx = _catmull_rom_weights(cx - x0)
+    y0i = y0.long()
+    x0i = x0.long()
+    out = torch.zeros_like(cy)
+    for a in range(4):
+        row = torch.zeros_like(cy)
+        for b in range(4):
+            row = row + wx[b] * gather(y0i + a - 1, x0i + b - 1)
+        out = out + wy[a] * row
+    return _fill_outside(out, cy, cx, m, n, mode, cval)
 
 
 def warp(field, displacement, order=1, mode="constant", cval=float("nan")):
-    """Exact bilinear backward warp of ``field`` by ``displacement``
-    (..., 2, m, n).  Only ``order=1`` is ported."""
-    if order != 1:
-        raise NotImplementedError(f"interp_order={order} is not ported yet")
+    """Exact backward warp of ``field`` by ``displacement`` (..., 2, m, n):
+    order 0 nearest, 1 bilinear, 3 Catmull-Rom bicubic."""
     m, n = field.shape[-2:]
     yy, xx = _grid(m, n, displacement)
     cy = yy + displacement[..., 1, :, :]
     cx = xx + displacement[..., 0, :, :]
+    if order == 0:
+        return nearest_warp(field, cy, cx, mode=mode, cval=cval)
+    if order == 3:
+        return cubic_warp(field, cy, cx, mode=mode, cval=cval)
     return bilinear_warp(field, cy, cx, mode=mode, cval=cval)
 
 

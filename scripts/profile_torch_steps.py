@@ -1,12 +1,15 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
-                                           [--path A|F|G|H]
+                                           [--path A|F|G|H|I|J|K|L|M]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
 leads; ``--path F``, ``G`` or ``H``: that path of ``chip_smoke.py``, the
-parametric, SSFT or nested noise generator), once
+parametric, SSFT or nested noise generator; ``--path I`` to ``M``: the
+extrapolation, Lagrangian probability, S-PROG, ANVIL or SSEPS nowcast of
+``chip_smoke.py``'s paths I-M, for which frames/s stands in for
+member-frames/s and ``--no-chain`` and ``--shapes`` do not apply), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
@@ -39,7 +42,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BENCH_KWARGS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs,
+    BENCH_KWARGS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs, nowcast_path,
+    takes_measure_time,
 )
 from pysteps_tpu_torch import nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
@@ -73,11 +77,15 @@ def main():
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
-    ap.add_argument("--path", choices=["A", *NOISE_PATHS], default="A",
-                    help="chip_smoke.py's path to run (F, G, H: the other noise generators)")
+    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM"], default="A",
+                    help="chip_smoke.py's path to run (F, G, H: the other noise generators; "
+                    "I-M: the other nowcasts)")
     args = ap.parse_args()
+    nowcast = args.path in "IJKLM"
+    if nowcast and (args.no_chain or args.shapes):
+        raise SystemExit("profile_torch_steps: --no-chain and --shapes are STEPS' options")
     E, side, T, extra_kw = (
-        (N_MEMBERS, SIDE, N_LEADS, {}) if args.path == "A" else NOISE_PATHS[args.path]
+        (N_MEMBERS, SIDE, N_LEADS, {}) if args.path in "AIJKLM" else NOISE_PATHS[args.path]
     )
     if args.no_chain:
         steps_mod._chain_available = lambda *a, **k: False
@@ -87,32 +95,48 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    precip_db, velocity = bench_inputs(side)
     dev = torch.device("cuda")
-    p = torch.as_tensor(precip_db, device=dev)
-    v = torch.as_tensor(velocity, device=dev)
-    steps = nowcasts.get_method("steps")
-    kw = dict(BENCH_KWARGS, n_ens_members=E, measure_time=True, **extra_kw)
+    if nowcast:
+        f, f_args, f_kw, frames = nowcast_path(args.path, dev)
+        timed = takes_measure_time(f)
+        shape = tuple(f_args[0].shape[-2:])
+        E = f_kw.get("n_ens_members", 1)
+        out_shape = ((E, T) if args.path == "M" else (T,)) + shape
+        side = shape[0]
 
-    def run(seed):
-        t0 = time.time()
-        out, init_s, loop_s = steps(p, v, T, **dict(kw, seed=seed))
-        torch.cuda.synchronize()
-        return time.time() - t0, init_s, loop_s, out
+        def run(seed):
+            t0 = time.time()
+            res = f(*f_args, **dict(f_kw, measure_time=True) if timed else f_kw)
+            torch.cuda.synchronize()
+            out, init_s, loop_s = res if timed else (res, None, None)
+            return time.time() - t0, init_s, loop_s, out
+    else:
+        precip_db, velocity = bench_inputs(side)
+        p = torch.as_tensor(precip_db, device=dev)
+        v = torch.as_tensor(velocity, device=dev)
+        steps = nowcasts.get_method("steps")
+        kw = dict(BENCH_KWARGS, n_ens_members=E, measure_time=True, **extra_kw)
+        out_shape = (E, T, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out, init_s, loop_s = steps(p, v, T, **dict(kw, seed=seed))
+            torch.cuda.synchronize()
+            return time.time() - t0, init_s, loop_s, out
 
     _kernels.reset_launches()
     run(1)
     # the flag patches the gate _steps_forecast reads; a run that took the
     # other path would profile the wrong one
     took_chain = _kernels.LAUNCHES["chain_horiz"] > 0
-    if took_chain == args.no_chain:
+    if not nowcast and took_chain == args.no_chain:
         raise AssertionError(f"--no-chain={args.no_chain}, launches {_kernels.LAUNCHES}")
     torch.cuda.reset_peak_memory_stats()
     runs = [run(2 + i)[:3] for i in range(args.runs)]
     peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, _, _, out = run(100)
-    if tuple(out.shape) != (E, T, side, side):
+    if tuple(out.shape) != out_shape:
         raise AssertionError(f"output shape {tuple(out.shape)}")
 
     kernels = [
@@ -150,7 +174,7 @@ def main():
         )
     print(json.dumps({
         "card": smi, "torch": torch.__version__, "path": args.path, **extra_kw,
-        "chain": not args.no_chain, "shape": [E, T, side, side],
+        "chain": not args.no_chain, "shape": list(out_shape),
         "runs_wall_init_loop_s": runs,
         "member_frames_per_s": mfs,
         "member_frames_per_s_median": statistics.median(mfs),

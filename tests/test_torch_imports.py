@@ -121,6 +121,44 @@ def _numpy_entry_points():
          fftgenerators.initialize_nonparam_2d_fft_filter(R, device=device)["field"]),
         ("initialize_bps", lambda device: motion.initialize_bps(
             series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
+    ] + _numpy_nowcast_entry_points()
+
+
+def _numpy_nowcast_entry_points():
+    """The extrapolation and nowcast entry points on 32^2 numpy inputs."""
+    from pysteps_tpu_torch import nowcasts
+    from pysteps_tpu_torch.extrapolation import interface as extrap, semilagrangian
+    from pysteps_tpu_torch.nowcasts import utils as nowcast_utils
+
+    rng = np.random.default_rng(4)
+    rain = np.maximum(rng.gamma(0.8, 3.0, (4, 32, 32)) - 1.0, 0.0).astype(np.float32)
+    db = np.where(rain >= 0.1, 10.0 * np.log10(np.maximum(rain, 0.1)), -15.0)
+    vel = np.full((2, 32, 32), 0.7, np.float32)
+    meta = {"accutime": 5, "threshold": -10.0, "xpixelsize": 1000.0}
+
+    def main_loop(device):
+        out = nowcast_utils.nowcast_main_loop(
+            rain[-1], vel, rain[-1], 2, "semilagrangian", lambda s, p: (s, s),
+            device=device)
+        return torch.as_tensor(out)  # host numpy frames, as in the JAX package
+
+    return [
+        ("extrapolate", lambda device: semilagrangian.extrapolate(
+            db[-1], vel, 2, device=device)),
+        ("eulerian_persistence", lambda device: extrap.eulerian_persistence(
+            db[-1], vel, 2, device=device)),
+        ("nowcast_main_loop", main_loop),
+        ("extrapolation.forecast", lambda device: nowcasts.get_method("extrapolation")(
+            db[-1], vel, 2, device=device)),
+        ("lagrangian_probability.forecast", lambda device: nowcasts.get_method(
+            "lagrangian_probability")(rain[-1], vel, 2, 1.0, device=device)),
+        ("sprog.forecast", lambda device: nowcasts.get_method("sprog")(
+            db[-3:], vel, 2, n_cascade_levels=4, precip_thr=-10.0, device=device)),
+        ("anvil.forecast", lambda device: nowcasts.get_method("anvil")(
+            rain, vel, 2, n_cascade_levels=4, device=device)),
+        ("sseps.forecast", lambda device: nowcasts.get_method("sseps")(
+            db[-3:], meta, vel, 2, n_ens_members=2, n_cascade_levels=4, win_size=16,
+            noise_kwargs={"win_size": 16}, device=device)),
     ]
 
 

@@ -246,9 +246,7 @@ def test_unported_options_raise():
     frames, velocity = _inputs()
     precip = _to_db(frames)
     f = tnowcasts.get_method("steps")
-    for extra in (
-        dict(mesh=object()), dict(callback=lambda x: None, return_output=False),
-    ):
+    for extra in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError):
             f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
     for extra in (
@@ -259,4 +257,4 @@ def test_unported_options_raise():
         with pytest.raises(ValueError):
             f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
     with pytest.raises(ValueError):
-        tnowcasts.get_method("sprog")
+        tnowcasts.get_method("linda")
