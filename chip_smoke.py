@@ -72,6 +72,23 @@ Phases, each printing JSON lines:
 13. path S: path A with a callback and ``return_output=False``, whose
    numpy frames must equal a returning run with the same seed within
    1e-5 at a lower peak device memory;
+14. tf32: the port's convolutions (STEPS' separable Gaussian window and
+   the motion stencils) within 1e-5 of float64 on the CPU, each with the
+   error of the same call under PyTorch's default cuDNN flags beside it;
+15. paths N-R, the motion solvers of the JAX bench at 512^2 through
+   ``motion.get_method`` with their default arguments: Lucas-Kanade on 3
+   frames followed by a 12-lead ``extrapolation`` of its flow (N, the
+   bench's ``extrap_512``), VET on 3 (O), Proesmans on 2 (P), DARTS on 9
+   (Q) and Farneback on 3 (R), each timed once after a warm-up with its
+   exact K1 launch counts and held against a CPU run of the port through
+   the card's branch (N's extrapolation against the CPU's K1 path on the
+   card's flow), its error against the true motion printed, and the
+   same method on the card under ``tests/test_motion.py``'s bound on
+   that test's frames; O also evaluates VET's cost and gradient at its
+   finest scale through K1 and its backward, against autograd of the
+   plain version on the same card inputs, with the backward's time;
+16. postprocessing: ``ensemblestats.mean``, ``excprob`` of 1 mm/h and
+   ``banddepth`` on path A's last lead on the card against the CPU;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -79,6 +96,7 @@ path that runs it) and, last, the ``ok`` line.  Any failed check raises,
 and the script exits non-zero without the ``ok`` line.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -95,7 +113,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from pysteps_tpu_torch import cascade as cascade_mod  # noqa: E402
-from pysteps_tpu_torch import noise, nowcasts  # noqa: E402
+from pysteps_tpu_torch import motion, noise, nowcasts  # noqa: E402
+from pysteps_tpu_torch.extrapolation import semilagrangian  # noqa: E402
+from pysteps_tpu_torch.motion import farneback as farneback_mod  # noqa: E402
+from pysteps_tpu_torch.motion import proesmans as proesmans_mod  # noqa: E402
+from pysteps_tpu_torch.motion import vet as vet_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import anvil as anvil_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import sprog as sprog_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import sseps as sseps_mod  # noqa: E402
@@ -105,6 +127,7 @@ from pysteps_tpu_torch.ops import _kernels  # noqa: E402
 from pysteps_tpu_torch.ops import (  # noqa: E402
     pallas_chain, pallas_dilate, pallas_histmatch, pallas_warp,
 )
+from pysteps_tpu_torch.ops import warp as warp_mod  # noqa: E402
 from pysteps_tpu_torch.postprocessing.probmatching import _prepare_cdf_target  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -150,11 +173,12 @@ def card_peaks(name):
     return CARD_PEAKS["H100"]
 
 
-def bench_inputs(side, velocity=(2.0, 1.0)):
-    """The STEPS benchmark's inputs: three synthetic frames in dB with a
-    small perturbation, and a constant motion field."""
+def bench_inputs(side, velocity=(2.0, 1.0), n_frames=3):
+    """The benchmark's inputs (``bench.py:105-122``): ``n_frames``
+    synthetic frames in dB with a small perturbation, and a constant
+    motion field."""
     frames = make_synthetic_sequence(
-        n_frames=3, shape=(side, side), velocity=velocity, seed=42
+        n_frames=n_frames, shape=(side, side), velocity=velocity, seed=42
     )
     precip_db = np.where(
         frames >= 0.1, 10.0 * np.log10(np.maximum(frames, 0.1)), -15.0
@@ -404,9 +428,11 @@ def _capture_chain_leads():
     pallas_chain.match_warp_rim = recording
     pallas_histmatch.build_pwl_coeffs = build_recording
     try:
-        nowcasts.get_method("steps")(
+        out = nowcasts.get_method("steps")(
             torch.as_tensor(precip_db, device=dev), torch.as_tensor(velocity, device=dev),
             N_LEADS, **BENCH_KWARGS)
+        last["forecast_last_lead"] = out[:, -1].clone()
+        del out
     finally:
         pallas_chain.match_warp_rim = real
         pallas_histmatch.build_pwl_coeffs = real_build
@@ -1385,6 +1411,297 @@ def phase_streaming(name, smi, expected):
     return launches
 
 
+# the motion solvers of the JAX bench at 512^2 (bench.py:92-100, :364-380):
+# path label -> (registry name, frames)
+MOTION_PATHS = {"N": ("lk", 3), "O": ("vet", 3), "P": ("proesmans", 2), "Q": ("darts", 9),
+                "R": ("farneback", 3)}
+# tests/test_motion.py's cases (its 200^2 frames, seed 3, no perturbation):
+# frames, the bound on the flow's relative RMSE against the true (2, 1)
+# 20 px from the borders (its lines 32-41), options.  The bench's inputs
+# carry a 0.1 dB perturbation over the -15 dB dry floor, which Proesmans
+# and Farneback diffuse into the flow there, so the bounds are held on
+# the frames they were set for, and the bench's error is printed
+MOTION_TRUTH = {"lk": (3, 0.1, {}), "vet": (2, 0.1, {"options": {"maxiter": 150}}),
+                "proesmans": (2, 0.1, {}), "darts": (9, 0.6, {}), "farneback": (2, 0.1, {})}
+# card against CPU (the card's branch on the CPU, plain K1), in px: every
+# pixel and the RMS; a few low-texture pixels of Farneback's 2 x 2 solve
+# (its determinant floored at 1e-6 of the trace squared) amplify the
+# stencils' rounding.  VET's Adam loop amplifies rounding (a step's
+# gradient differs in its last bits between the two), so it is held on
+# the flow's RMS difference relative to |v|
+MOTION_CARD_VS_CPU_PX = (0.05, 1e-3)
+VET_CARD_VS_CPU_REL_RMS = 0.1
+# VET's gradient through K1 and its backward against autograd of the plain
+# version on the same card inputs, relative to the largest component
+VET_GRAD_RTOL = 1e-5
+TF32_RTOL = 1e-5  # an IEEE float32 stencil against float64, of max |out|
+def _rel_rmse(uv, u_true=2.0, v_true=1.0, margin=20):
+    """The flow's RMSE against the true motion, 20 px from the borders,
+    relative to its speed (``tests/test_motion.py::_rel_rmse``)."""
+    uv = torch.as_tensor(uv).detach().cpu().double()
+    u = uv[0, margin:-margin, margin:-margin]
+    v = uv[1, margin:-margin, margin:-margin]
+    err = torch.sqrt(torch.mean((u - u_true) ** 2 + (v - v_true) ** 2))
+    return float(err) / float(np.hypot(u_true, v_true))
+
+
+def _motion_k1(label):
+    """K1's launches per axis on path ``label``, from the code: VET one
+    forward an Adam step (100 steps at 2 and 4 sectors a side, 150 at 16
+    and 32, with its default ``maxiter`` 100); Proesmans 2 an iteration (the
+    consistency of both directions, then their warps, each one batch), 100
+    iterations at each of 6 levels (512 down to 16); Farneback 1 an
+    iteration (the six coefficient planes in one batch), 5 at each of 4
+    levels (512 down to 64, where the next would fall below twice the
+    window); the extrapolation after LK 3 a lead (path I)."""
+    return {"N": 3 * N_LEADS, "O": 2 * max(100, 80) + 2 * max(100, 150), "P": 2 * 100 * 6,
+            "Q": 0, "R": 5 * 4}[label]
+
+
+def _flow_card_vs_cpu(label, card, cpu):
+    """The card's flow against the CPU's: raises beyond the path's
+    tolerance; returns the comparison."""
+    c = torch.as_tensor(card).detach().cpu().double()
+    r = torch.as_tensor(cpu).detach().cpu().double()
+    if c.shape != r.shape or not bool(torch.isfinite(c).all()):
+        raise AssertionError(f"{label}: card flow of shape {tuple(c.shape)} or not finite")
+    diff = (c - r).abs()
+    rec = {"max_abs_diff_px": float(diff.max()),
+           "rms_diff_px": float(torch.sqrt(torch.mean(diff**2))),
+           "cpu_rel_rmse_vs_truth": _rel_rmse(r)}
+    if label == "O":
+        rec.update(rel_rms_tol=VET_CARD_VS_CPU_REL_RMS)
+        ok = rec["rms_diff_px"] <= VET_CARD_VS_CPU_REL_RMS * float(np.hypot(2.0, 1.0))
+    else:
+        rec.update(tol_max_px=MOTION_CARD_VS_CPU_PX[0], tol_rms_px=MOTION_CARD_VS_CPU_PX[1])
+        ok = (rec["max_abs_diff_px"] <= MOTION_CARD_VS_CPU_PX[0]
+              and rec["rms_diff_px"] <= MOTION_CARD_VS_CPU_PX[1])
+    if not ok:
+        raise AssertionError(f"{label}: card and CPU flows disagree: {rec}")
+    return rec
+
+
+def _cpu_flow(method, frames):
+    """The port's flow on the CPU through the card's branch: the shift
+    warp with the card's bounds (plain K1) for Proesmans and Farneback,
+    VET's recentred shift cost; LK and DARTS have one branch."""
+    x = torch.as_tensor(frames)
+    if method == "proesmans":
+        return proesmans_mod._proesmans_full(x[-2], x[-1], 50.0, 6, 100, 0.0, True, False)
+    if method == "farneback":
+        return farneback_mod._farneback_full(x[-2], x[-1], 4, 5, 7, 1.5, 32, True)
+    kw = {"max_disp": "shift", "verbose": False} if method == "vet" else {}
+    if method == "darts":
+        kw["verbose"] = False
+    return motion.get_method(method)(x, device="cpu", **kw)
+
+
+def _vet_gradient(frames, guesses):
+    """One cost-and-gradient evaluation at VET's finest scale (32 x 32
+    sectors) on the card at the final sector displacements, through K1 and
+    its backward (``AxisResample``), against autograd of the plain
+    ``_axis_resample`` on the same card inputs; with each side's backward
+    time (CUDA events, median of 10)."""
+    dev = torch.device("cuda")
+    imgs = frames.astype(np.float64)
+    di, dj = vet_mod._global_shift(imgs[0], imgs[1])
+    gshift = (vet_mod.round_int(di), vet_mod.round_int(dj))
+    x = np.ascontiguousarray(guesses[-1][::-1])  # back to (i, j) order
+    cost, md = vet_mod._scale_cost(imgs, ~np.isfinite(imgs).any(axis=0), x, (32, 32), "shift",
+                                   gshift, 1e6, dev)
+    x = torch.as_tensor(x.ravel(), dtype=torch.float32, device=dev)
+
+    def evaluate():
+        xr = x.clone().requires_grad_(True)
+        val = cost(xr)
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        (g,) = torch.autograd.grad(val, xr)
+        stop.record()
+        torch.cuda.synchronize()
+        return val.detach(), g, start.elapsed_time(stop)
+
+    runs = [evaluate() for _ in range(11)][1:]
+    _kernels.reset_launches()
+    evaluate()
+    k1 = {k: _kernels.LAUNCHES[k] for k in ("resample_axis0", "resample_axis1")}
+    if k1 != {"resample_axis0": 1, "resample_axis1": 1}:
+        raise AssertionError(f"O gradient: the cost did not run through K1 once an axis: {k1}")
+    real = warp_mod.axis_resample
+    warp_mod.axis_resample = pallas_warp._axis_resample
+    try:
+        plain = [evaluate() for _ in range(11)][1:]
+    finally:
+        warp_mod.axis_resample = real
+    val, g, _ = runs[-1]
+    pval, pg, _ = plain[-1]
+    rel = float((g - pg).abs().max() / pg.abs().max())
+    rec = {"sectors": [32, 32], "max_disp": md, "center_shift": list(gshift),
+           "cost": float(val), "cost_plain": float(pval),
+           "grad_max_rel_diff": rel, "rtol": VET_GRAD_RTOL,
+           "backward_ms": statistics.median(r[2] for r in runs),
+           "backward_ms_plain": statistics.median(r[2] for r in plain)}
+    if not rel <= VET_GRAD_RTOL or abs(float(val) - float(pval)) > 1e-5 * abs(float(pval)):
+        raise AssertionError(f"O gradient: K1's autograd and the plain version differ: {rec}")
+    return rec
+
+
+def _truth_on_card(method):
+    """``tests/test_motion.py``'s case of ``method`` on the card: the relative
+    RMSE against the true motion, which must be under its bound."""
+    n_frames, bound, kw = MOTION_TRUTH[method]
+    frames = make_synthetic_sequence(n_frames=9, shape=(200, 200), velocity=(2.0, 1.0),
+                                     seed=3)
+    db = (10.0 * np.log10(np.maximum(frames, 0.1))).astype(np.float32)[:n_frames]
+    kw = dict(kw, verbose=False) if method in ("vet", "darts") else kw
+    rel = _rel_rmse(motion.get_method(method)(torch.as_tensor(db, device="cuda"), **kw))
+    if not rel < bound:
+        raise AssertionError(f"{method}: relative RMSE {rel} >= {bound} on test_motion's frames")
+    return {"rel_rmse": rel, "bound": bound, "frames": [n_frames, 200, 200]}
+
+
+def phase_motion(name, smi):
+    """Paths N-R: each motion solver of the JAX bench through
+    ``motion.get_method`` on the card at 512^2 with its default arguments,
+    timed once after a warm-up with its exact K1 launch counts; its flow
+    against a CPU run of the port through the card's branch and its
+    relative RMSE against the true motion; then the same method on the
+    card on ``tests/test_motion.py``'s frames, under that test's bound.
+    N also extrapolates 12 leads with the LK flow (the bench's
+    ``extrap_512``), held against the CPU's K1 path on the card's flow; O
+    also checks VET's gradient through K1 against the plain autograd.  Returns the launch counts by path."""
+    dev = torch.device("cuda")
+    common = {"device": name, "nvidia_smi": smi}
+    by_path = {}
+    for label, (method, n_frames) in MOTION_PATHS.items():
+        frames, _ = bench_inputs(SIDE, n_frames=n_frames)
+        x = torch.as_tensor(frames, device=dev)
+        f = motion.get_method(method)
+        kw = {"verbose": False} if method in ("vet", "darts") else {}
+
+        def run():
+            flow = f(x, **kw)
+            if label != "N":
+                return flow, None
+            return flow, nowcasts.get_method("extrapolation")(x[-1], flow, N_LEADS)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.time()
+        flow, fc = run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        k1 = _motion_k1(label)
+        _check_launches(label, launches, {"resample_axis0": k1, "resample_axis1": k1})
+        if tuple(flow.shape) != (2, SIDE, SIDE) or not flow.is_cuda:
+            raise AssertionError(f"{label}: flow of shape {tuple(flow.shape)} on {flow.device}")
+        t1 = time.time()
+        held = _flow_card_vs_cpu(label, flow, _cpu_flow(method, frames))
+        held["cpu_s"] = time.time() - t1
+        rec = {"phase": f"path {label}", "method": method, "frames": n_frames,
+               "shape": [n_frames, SIDE, SIDE], "wall_s": wall,
+               "retrievals_per_s": 1.0 / wall, "max_memory_allocated": peak,
+               "rel_rmse_vs_truth": _rel_rmse(flow), "launches": launches,
+               "card_vs_cpu": held}
+        if label == "N":
+            # the extrapolation from the card's flow, against the CPU's K1
+            # path (the same bound 48, plain K1) on a copy of that flow
+            if tuple(fc.shape) != (N_LEADS, SIDE, SIDE) or torch.isinf(fc).any():
+                raise AssertionError(f"N: extrapolation of shape {tuple(fc.shape)}")
+            ref, _ = semilagrangian._extrapolate_core(
+                x[-1].cpu(), flow.cpu(), [1.0] * N_LEADS, 1, 1, float("nan"),
+                torch.zeros((2, SIDE, SIDE)), 1.0, 48)
+            rec["extrapolation_card_vs_cpu"] = _nanclose("N", fc, ref, 1e-4)
+            rec["frames_per_s"] = N_LEADS / wall
+        if label == "O":
+            _, guesses = f(x, intermediate_steps=True, **kw)
+            rec["gradient"] = _vet_gradient(frames, guesses)
+        rec["truth_test_motion"] = _truth_on_card(method)
+        by_path[label] = launches
+        emit({**rec, **common})
+        del flow, fc, x
+    return by_path
+
+
+def phase_postprocessing(name, smi, forecast):
+    """``ensemblestats.mean``, ``excprob`` of 1 mm/h (0 dB) and
+    ``banddepth`` on path A's last lead (96 x 512^2, dB) on the card,
+    each held against the same call on the CPU: the exceedances equal,
+    the mean and the depths within 1e-5 of their scale."""
+    from pysteps_tpu_torch.postprocessing import ensemblestats
+
+    cpu_fc = forecast.cpu()
+    rec = {"phase": "postprocessing", "shape": list(forecast.shape), "device": name,
+           "nvidia_smi": smi}
+    for fname, call, tol in (
+            ("mean", lambda X: ensemblestats.mean(X, ignore_nan=True), 1e-5),
+            ("excprob", lambda X: ensemblestats.excprob(X, 0.0, ignore_nan=True), 0.0),
+            ("banddepth", lambda X: ensemblestats.banddepth(X), 1e-5)):
+        card = call(forecast)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: call(forecast), reps=5)
+        ref = call(cpu_fc)
+        c, r = card.cpu().double(), ref.double()
+        if not torch.equal(torch.isnan(c), torch.isnan(r)):
+            raise AssertionError(f"postprocessing {fname}: NaN sets differ")
+        scale = float(torch.nan_to_num(r).abs().max())
+        err = float(torch.nan_to_num(c - r).abs().max())
+        if err > tol * scale:
+            raise AssertionError(f"postprocessing {fname}: card and CPU differ by {err}")
+        rec[fname] = {"ms": ms, "max_abs_diff": err, "scale": scale, "tol_of_scale": tol}
+    emit(rec)
+
+
+def phase_tf32(name, smi):
+    """The port's convolutions against float64 on the CPU: STEPS' separable
+    Gaussian window (``timeseries/correlation.py::_sep_conv2d``, radius
+    30 as the localized AR fit uses it) and the motion stencils (Sobel,
+    Farneback's 33-tap window, Proesmans' 3 x 3 average) on path A's last
+    observation, each with the relative error of the same call under
+    PyTorch's default cuDNN flags beside it (TF32 where the default allows
+    it)."""
+    from pysteps_tpu_torch.ops import conv as conv_mod
+    from pysteps_tpu_torch.timeseries.correlation import _gaussian_kernel1d, _sep_conv2d
+
+    dev = torch.device("cuda")
+    precip_db, _ = bench_inputs(SIDE)
+    field = torch.as_tensor(precip_db[-1], device=dev)
+    k30 = _gaussian_kernel1d(30.0, dev)
+    gw = farneback_mod._gauss_kernel(16, 8.0, dev)
+    sobel = torch.tensor([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]], device=dev) / 8
+    lap = torch.tensor(proesmans_mod._LAP, dtype=torch.float32, device=dev)
+    cases = (
+        ("sep_conv2d gaussian r30", lambda f, k: _sep_conv2d(f, k), k30),
+        ("sep_corr farneback 33", lambda f, k: conv_mod.sep_corr(f, k, k), gw),
+        ("corr_same sobel", conv_mod.corr_same, sobel),
+        ("corr_same proesmans 3x3", conv_mod.corr_same, lap),
+    )
+    rec = {"phase": "tf32", "cudnn_allow_tf32_default": torch.backends.cudnn.allow_tf32,
+           "rtol_of_max": TF32_RTOL, "device": name, "nvidia_smi": smi}
+    for label, fn, k in cases:
+        ref = fn(field.cpu().double(), k.cpu().double())
+        scale = float(ref.abs().max())
+        port = fn(field, k).cpu().double()
+        # the same calls under PyTorch's default cuDNN flags
+        real = conv_mod.ieee_fp32
+        conv_mod.ieee_fp32 = contextlib.nullcontext
+        try:
+            bare = fn(field, k).cpu().double()
+        finally:
+            conv_mod.ieee_fp32 = real
+        err = float((port - ref).abs().max()) / scale
+        rec[label] = {"port_max_rel_err": err,
+                      "default_flags_max_rel_err": float((bare - ref).abs().max()) / scale}
+        if err > TF32_RTOL:
+            raise AssertionError(f"tf32: {label} differs from float64 by {err} of max")
+    emit(rec)
+
+
 def main():
     name, smi = phase_device()
     peaks = card_peaks(name)
@@ -1396,6 +1713,9 @@ def main():
     by_path = phase_paths(name, smi, captured)
     by_path.update(phase_nowcasts(name, smi))
     by_path["S"] = phase_streaming(name, smi, by_path["A"])
+    phase_tf32(name, smi)
+    by_path.update(phase_motion(name, smi))
+    phase_postprocessing(name, smi, captured["forecast_last_lead"])
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

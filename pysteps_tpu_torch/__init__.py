@@ -17,11 +17,14 @@ tensors.
 from pysteps_tpu_torch import (  # noqa: F401
     cascade,
     extrapolation,
+    feature,
+    motion,
     noise,
     nowcasts,
     ops,
     postprocessing,
     timeseries,
+    tracking,
     utils,
 )
 

@@ -48,11 +48,8 @@ def _axis_resample(field, idx0, frac, D, axis):
     return _gather_lerp(field, k, frac, 1 + axis)
 
 
-def axis_resample(field, idx0, frac, D, axis):
-    """K1 (replaces ``axis_resample_pallas`` / ``pallas_resample0``): see
-    :func:`_axis_resample` for the function it computes."""
-    if not field.is_cuda:
-        return _axis_resample(field, idx0, frac, D, axis)
+def _axis_resample_launch(field, idx0, frac, D, axis):
+    """K1 on checked CUDA inputs."""
     B, m, n = field.shape
     if idx0.shape[1:] != (m, n) or frac.shape != idx0.shape:
         raise ValueError("axis_resample: idx0/frac must be (Bi, m, n)")
@@ -70,6 +67,70 @@ def axis_resample(field, idx0, frac, D, axis):
     )
     _kernels.LAUNCHES[f"resample_axis{int(axis)}"] += 1
     return out
+
+
+def _axis_resample_grads(grad, field, idx0, frac, D, axis, need_field, need_frac):
+    """The gradients of K1's function (:func:`_axis_resample`) for the
+    output's gradient ``grad``: with k the index clipped to [p - D, p + D]
+    and its two taps k0 = k and k1 = k + 1 clamped to the edges (both the
+    same index beyond an edge),
+    d field[k0] += grad (1 - frac), d field[k1] += grad frac, and d frac =
+    grad (field[k1] - field[k0]), summed over the fields that share a
+    plane.  Gathers and ``scatter_add_``: the JAX package's kernel has no
+    backward of its own (its gradient is XLA's autodiff)."""
+    Bi = idx0.shape[0]
+    rep = field.shape[0] // Bi
+    dim = 1 + axis
+    size = field.shape[dim]
+    pos = torch.arange(size, device=field.device, dtype=idx0.dtype)
+    pos = pos[:, None] if axis == 0 else pos[None, :]
+    k = torch.clamp(idx0, pos - D, pos + D).long()
+    k0, k1 = torch.clamp(k, 0, size - 1), torch.clamp(k + 1, 0, size - 1)
+    if rep > 1:
+        k0, k1 = k0.repeat_interleave(rep, dim=0), k1.repeat_interleave(rep, dim=0)
+        frac = frac.repeat_interleave(rep, dim=0)
+    grad_field = grad_frac = None
+    if need_frac:
+        diff = torch.gather(field, dim, k1) - torch.gather(field, dim, k0)
+        grad_frac = (grad * diff).reshape((Bi, rep) + tuple(grad.shape[1:])).sum(dim=1)
+    if need_field:
+        grad_field = torch.zeros_like(field)
+        grad_field.scatter_add_(dim, k0, grad * (1.0 - frac))
+        grad_field.scatter_add_(dim, k1, grad * frac)
+    return grad_field, grad_frac
+
+
+class AxisResample(torch.autograd.Function):
+    """K1 under autograd: the forward is kernel K1 for CUDA tensors and
+    its plain version for CPU tensors, the backward
+    :func:`_axis_resample_grads` (PyTorch operators on either device)."""
+
+    @staticmethod
+    def forward(ctx, field, idx0, frac, D, axis):
+        ctx.save_for_backward(field, idx0, frac)
+        ctx.D, ctx.axis = int(D), int(axis)
+        if field.is_cuda:
+            return _axis_resample_launch(field, idx0, frac, D, axis)
+        return _axis_resample(field, idx0, frac, D, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        field, idx0, frac = ctx.saved_tensors
+        grad_field, grad_frac = _axis_resample_grads(
+            grad.contiguous(), field, idx0, frac, ctx.D, ctx.axis,
+            ctx.needs_input_grad[0], ctx.needs_input_grad[2])
+        return grad_field, None, grad_frac, None, None
+
+
+def axis_resample(field, idx0, frac, D, axis):
+    """K1 (replaces ``axis_resample_pallas`` / ``pallas_resample0``): see
+    :func:`_axis_resample` for the function it computes.  Where ``field``
+    or ``frac`` requires grad, it runs through :class:`AxisResample`."""
+    if torch.is_grad_enabled() and (field.requires_grad or frac.requires_grad):
+        return AxisResample.apply(field, idx0, frac, D, axis)
+    if not field.is_cuda:
+        return _axis_resample(field, idx0, frac, D, axis)
+    return _axis_resample_launch(field, idx0, frac, D, axis)
 
 
 def _round8(D):

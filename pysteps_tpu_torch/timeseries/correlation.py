@@ -6,8 +6,8 @@ or uniform convolutions, and the spectral form from rfft2 half-planes."""
 import math
 
 import torch
-import torch.nn.functional as F
 
+from pysteps_tpu_torch.ops.conv import conv2d
 from pysteps_tpu_torch.utils import spectral as spectral_utils
 
 
@@ -36,13 +36,14 @@ def _uniform_kernel1d(radius, device=None):
 
 def _sep_conv2d(field, k1d):
     """Separable zero-padded "same" correlation of (..., m, n) fields with
-    the odd-length 1-D kernel ``k1d`` along both grid axes."""
+    the odd-length 1-D kernel ``k1d`` along both grid axes, in IEEE
+    float32 on the card (:func:`ops.conv.conv2d`)."""
     shape = field.shape
     half = (k1d.numel() - 1) // 2
     f = field.reshape(-1, 1, shape[-2], shape[-1])
     k = k1d.to(field.dtype)
-    f = F.conv2d(f, k.reshape(1, 1, -1, 1), padding=(half, 0))
-    f = F.conv2d(f, k.reshape(1, 1, 1, -1), padding=(0, half))
+    f = conv2d(f, k.reshape(1, 1, -1, 1), padding=(half, 0))
+    f = conv2d(f, k.reshape(1, 1, 1, -1), padding=(0, half))
     return f.reshape(shape)
 
 

@@ -1,6 +1,7 @@
 """Array helpers (counterpart of ``pysteps_tpu/utils/arrays.py``)."""
 
 import numpy as np
+import torch
 
 
 def compute_centred_coord_array(M, N):
@@ -16,3 +17,9 @@ def compute_centred_coord_array(M, N):
         s2 = np.s_[-int(N / 2) : int(N / 2)]
     yc, xc = np.ogrid[s1, s2]
     return yc, xc
+
+
+def _nanmin(x, dim=None):
+    """The smallest non-NaN value of ``x`` (along ``dim``), as a tensor."""
+    filled = torch.where(torch.isnan(x), float("inf"), x)
+    return filled.amin() if dim is None else filled.amin(dim=dim)

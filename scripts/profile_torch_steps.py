@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
-                                           [--path A|F|G|H|I|J|K|L|M]
+                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
@@ -9,13 +9,19 @@ leads; ``--path F``, ``G`` or ``H``: that path of ``chip_smoke.py``, the
 parametric, SSFT or nested noise generator; ``--path I`` to ``M``: the
 extrapolation, Lagrangian probability, S-PROG, ANVIL or SSEPS nowcast of
 ``chip_smoke.py``'s paths I-M, for which frames/s stands in for
-member-frames/s and ``--no-chain`` and ``--shapes`` do not apply), once
+member-frames/s and ``--no-chain`` and ``--shapes`` do not apply;
+``--path N`` to ``R``: the motion solver of ``chip_smoke.py``'s paths
+N-R at 512^2, LK with the 12-lead extrapolation of its flow, VET,
+Proesmans, DARTS or Farneback, for which retrievals/s stands in, or
+frames/s for N), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
 seconds, the device time by kernel group (the hand kernels K1-K4, the
-two chain stages and the two other PWL maps, FFTs, sorts, reductions,
-elementwise) and the device's idle share of the profiled run.  The
+two chain stages and the two other PWL maps, FFTs, sorts, scatters and
+gathers, cuDNN convolutions, matrix products, reductions, elementwise;
+the scatter, gather, convolution and product groups are matched first)
+and the device's idle share of the profiled run.  The
 per-kernel table goes to ``--out`` (default
 ``build/profile_torch_steps.json``).  ``--no-chain`` turns the fused
 match-rim-warp chain off, so that the loop runs K3, K4 and K2 as separate
@@ -42,10 +48,10 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BENCH_KWARGS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs, nowcast_path,
-    takes_measure_time,
+    BENCH_KWARGS, MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs,
+    nowcast_path, takes_measure_time,
 )
-from pysteps_tpu_torch import nowcasts  # noqa: E402
+from pysteps_tpu_torch import motion, nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
 
@@ -56,6 +62,9 @@ GROUPS = (
     ("pst_pwl_hier", "pwl hier"), ("pst_pwl_flat", "pwl flat"),
     ("pst_pwl", "K3 pwl"), ("pst_rim", "K4 rim"),
     ("fft", "fft"), ("sort", "sort"), ("radix", "sort"),
+    ("scatter", "scatter/gather"), ("gather", "scatter/gather"), ("cudnn", "conv"),
+    ("implicit_gemm", "conv"), ("fprop", "conv"), ("convolution", "conv"),
+    ("conv2d", "conv"), ("gemm", "matmul"), ("cutlass", "matmul"), ("xmma", "matmul"),
     ("reduce", "reduction"), ("elementwise", "elementwise"),
     ("vectorized", "elementwise"), ("memcpy", "copy"), ("memset", "copy"),
 )
@@ -77,15 +86,16 @@ def main():
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
-    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM"], default="A",
-                    help="chip_smoke.py's path to run (F, G, H: the other noise generators; "
-                    "I-M: the other nowcasts)")
+    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS],
+                    default="A", help="chip_smoke.py's path to run (F, G, H: the other noise "
+                    "generators; I-M: the other nowcasts; N-R: the motion solvers)")
     args = ap.parse_args()
-    nowcast = args.path in "IJKLM"
+    moving = args.path in MOTION_PATHS
+    nowcast = args.path in "IJKLM" or moving
     if nowcast and (args.no_chain or args.shapes):
         raise SystemExit("profile_torch_steps: --no-chain and --shapes are STEPS' options")
     E, side, T, extra_kw = (
-        (N_MEMBERS, SIDE, N_LEADS, {}) if args.path in "AIJKLM" else NOISE_PATHS[args.path]
+        NOISE_PATHS[args.path] if args.path in NOISE_PATHS else (N_MEMBERS, SIDE, N_LEADS, {})
     )
     if args.no_chain:
         steps_mod._chain_available = lambda *a, **k: False
@@ -96,7 +106,24 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     dev = torch.device("cuda")
-    if nowcast:
+    if moving:
+        method, n_frames = MOTION_PATHS[args.path]
+        frames, _ = bench_inputs(SIDE, n_frames=n_frames)
+        x = torch.as_tensor(frames, device=dev)
+        flow_fn = motion.get_method(method)
+        kw = {"verbose": False} if method in ("vet", "darts") else {}
+        E, side = 1, SIDE
+        T = N_LEADS if args.path == "N" else 1
+        out_shape = (T, side, side) if args.path == "N" else (2, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out = flow_fn(x, **kw)
+            if args.path == "N":
+                out = nowcasts.get_method("extrapolation")(x[-1], out, N_LEADS)
+            torch.cuda.synchronize()
+            return time.time() - t0, None, None, out
+    elif nowcast:
         f, f_args, f_kw, frames = nowcast_path(args.path, dev)
         timed = takes_measure_time(f)
         shape = tuple(f_args[0].shape[-2:])
@@ -139,9 +166,12 @@ def main():
     if tuple(out.shape) != out_shape:
         raise AssertionError(f"output shape {tuple(out.shape)}")
 
+    # device events only: a user annotation (e.g. ``Optimizer.step``) spans
+    # kernels that are counted on their own
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     busy_us = sum(e.self_device_time_total for e in kernels)
     groups = {}

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of it (nor ``chip_smoke.py``)
-imports JAX or the JAX package, a forecast runs without loading JAX, and
+imports JAX, optax or the JAX package, a forecast runs without loading JAX, and
 the entry points default to CUDA and raise where it is absent."""
 
 import ast
@@ -17,7 +17,7 @@ PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [ROOT / "chip_
 
 def _forbidden(module):
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "pysteps_tpu")
+    return top in ("jax", "jaxlib", "optax", "pysteps_tpu")
 
 
 def _imported_modules(tree):
@@ -38,6 +38,7 @@ def test_no_jax_import(path):
 
 def test_forbidden_names_tell_the_prefix_apart():
     assert _forbidden("pysteps_tpu.ops.warp") and _forbidden("jax.numpy")
+    assert _forbidden("optax")
     assert not _forbidden("pysteps_tpu_torch.ops.warp")
 
 
@@ -121,7 +122,7 @@ def _numpy_entry_points():
          fftgenerators.initialize_nonparam_2d_fft_filter(R, device=device)["field"]),
         ("initialize_bps", lambda device: motion.initialize_bps(
             series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
-    ] + _numpy_nowcast_entry_points()
+    ] + _numpy_nowcast_entry_points() + _numpy_motion_entry_points()
 
 
 def _numpy_nowcast_entry_points():
@@ -159,6 +160,72 @@ def _numpy_nowcast_entry_points():
         ("sseps.forecast", lambda device: nowcasts.get_method("sseps")(
             db[-3:], meta, vel, 2, n_ens_members=2, n_cascade_levels=4, win_size=16,
             noise_kwargs={"win_size": 16}, device=device)),
+    ]
+
+
+def _numpy_motion_entry_points():
+    """The motion, feature, tracking and post-processing entry points on
+    32^2 numpy inputs; those that return host arrays are wrapped so that
+    the CPU call gives a tensor (the card call raises before)."""
+    from pysteps_tpu_torch import motion
+    from pysteps_tpu_torch.feature import shitomasi
+    from pysteps_tpu_torch.postprocessing import ensemblestats, probmatching
+    from pysteps_tpu_torch.tracking import lucaskanade
+    from pysteps_tpu_torch.utils import images, interpolate
+
+    rng = np.random.default_rng(5)
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    frames = np.stack([
+        20.0 * np.exp(-((xx - 12 - 1.5 * t) ** 2 + (yy - 14 - t) ** 2) / 40.0)
+        + rng.normal(0, 0.5, (32, 32)) for t in range(6)]).astype(np.float32)
+    ens = np.maximum(rng.gamma(0.8, 3.0, (4, 32, 32)) - 1.0, 0.0).astype(np.float32)
+    pts = np.array([[10.0, 12.0], [20.5, 15.0], [14.0, 22.0]], np.float32)
+    grid = np.arange(32, dtype=np.float32)
+    small = {"proesmans": {"num_iter": 5, "verbose": False},
+             "vet": {"sectors": (4, 2), "verbose": False}, "darts": {"verbose": False},
+             "lk": {"fd_kwargs": {"max_corners": 20}, "lk_kwargs": {"winsize": (10, 10)}},
+             "constant": {"max_shift": 4}}
+    entries = [
+        (f"motion.get_method({name!r})",
+         lambda device, name=name: motion.get_method(name)(
+             frames[:2] if name in ("proesmans", "vet", None) else frames,
+             device=device, **small.get(name, {})))
+        for name in ("lk", "constant", "darts", "proesmans", "farneback", "vet", None)
+    ]
+    return entries + [
+        ("shitomasi.detection", lambda device: torch.as_tensor(
+            shitomasi.detection(frames[0], device=device))),
+        ("shitomasi.detection_batch", lambda device: torch.as_tensor(
+            shitomasi.detection_batch(frames[:2], device=device)[0])),
+        ("lucaskanade.track_features", lambda device: torch.as_tensor(
+            lucaskanade.track_features(frames[0], frames[1], pts, winsize=(10, 10),
+                                       device=device)[1])),
+        ("lucaskanade.track_features_batch", lambda device: torch.as_tensor(
+            lucaskanade.track_features_batch(frames[:1], frames[1:2], [pts], winsize=(10, 10),
+                                             device=device)[0][1])),
+        ("idwinterp2d", lambda device: interpolate.idwinterp2d(
+            pts, pts[:, 0], grid, grid, device=device)),
+        ("rbfinterp2d", lambda device: interpolate.rbfinterp2d(
+            pts, pts[:, 0], grid, grid, device=device)),
+        ("morph_opening", lambda device: images.morph_opening(frames[0], 1.0, 3,
+                                                              device=device)),
+        ("morph_opening_batch", lambda device: images.morph_opening_batch(
+            frames[:2], [1.0, 1.0], 3, device=device)),
+        ("ensemblestats.mean", lambda device: ensemblestats.mean(ens, device=device)),
+        ("ensemblestats.excprob",
+         lambda device: ensemblestats.excprob(ens, 1.0, device=device)),
+        ("ensemblestats.banddepth",
+         lambda device: ensemblestats.banddepth(ens, device=device)),
+        ("nonparam_match_empirical_cdf", lambda device:
+         probmatching.nonparam_match_empirical_cdf(ens[0], ens[1], device=device)),
+        ("compute_empirical_cdf", lambda device: probmatching.compute_empirical_cdf(
+            grid[:9], grid[:8], device=device)),
+        ("pmm_init", lambda device: probmatching.pmm_init(
+            grid, grid / 31, grid, grid / 31, device=device)["cdf_1"]),
+        ("shift_scale", lambda device: probmatching.shift_scale(
+            ens[0], "mm/h", 0.3, 4.0, device=device)[2]),
+        ("resample_distributions", lambda device: probmatching.resample_distributions(
+            ens[0], ens[1], 0.5, device=device)),
     ]
 
 
