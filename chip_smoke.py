@@ -89,6 +89,23 @@ Phases, each printing JSON lines:
    plain version on the same card inputs, with the backward's time;
 16. postprocessing: ``ensemblestats.mean``, ``excprob`` of 1 mm/h and
    ``banddepth`` on path A's last lead on the card against the CPU;
+17. verification: path A's last lead (96 x 512^2) against the synthetic
+   frame of that lead: CRPS, the rank histogram, the reliability diagram
+   and ROC of exceeding 1 mm/h, and on the ensemble mean FSS at three
+   scales, CSI/POD/FAR, MAE/RMSE/corr, the intensity-scale matrix, the
+   binary MSE and SAL, each on the card and on the CPU with its tolerance
+   and its card seconds;
+18. paths T and U, LINDA at 512^2 with 12 leads through
+   ``nowcasts.get_method("linda")`` on the bench's rain-rate frames: T the
+   JAX bench's ``linda_512`` (the domain as one feature, deterministic),
+   U the module's defaults (up to 25 blob features, 10 members, BPS),
+   each timed once after a warm-up with every hand kernel's launch count
+   0 (LINDA advects by the exact gather).  T is held against CPU runs of
+   the port (one from the card's fitted kernel spectra, one with the
+   CPU's own fits, held on the fits' objectives); U's members must spread
+   at every lead, and its deterministic parts (features, kernel fits,
+   psi, advection mask, AR window, hindcast, error model, one
+   perturbation field of one white spectrum) are held against the CPU's;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -119,6 +136,7 @@ from pysteps_tpu_torch.motion import farneback as farneback_mod  # noqa: E402
 from pysteps_tpu_torch.motion import proesmans as proesmans_mod  # noqa: E402
 from pysteps_tpu_torch.motion import vet as vet_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import anvil as anvil_mod  # noqa: E402
+from pysteps_tpu_torch.nowcasts import linda as linda_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import sprog as sprog_mod  # noqa: E402
 from pysteps_tpu_torch.nowcasts import sseps as sseps_mod  # noqa: E402
 from pysteps_tpu_torch.noise import fftgenerators  # noqa: E402
@@ -1701,6 +1719,342 @@ def phase_tf32(name, smi):
             raise AssertionError(f"tf32: {label} differs from float64 by {err} of max")
     emit(rec)
 
+# LINDA at the JAX bench's size (bench.py:246-257, inputs bench.py:105-122):
+# T its linda_512 (the domain as one feature, deterministic), U the module's
+# defaults (blob features, 10 members, BPS)
+LINDA_MEMBERS = 10
+LINDA_MAX_FEATURES = 25
+LINDA_PATHS = {
+    "T": dict(feature_method="domain", add_perturbations=False),
+    "U": dict(feature_method="blob", max_num_features=LINDA_MAX_FEATURES,
+              n_ens_members=LINDA_MEMBERS, kmperpixel=1.0, timestep=5, seed=42),
+}
+# card against CPU: a loop from the same spectra (cuFFT against the CPU's
+# FFT), the AR window and the hindcast, of span; psi absolute; the fits'
+# objectives relative.  A fit follows rounding from its first step in phi
+# (nowcasts/linda.py::_fit_kernels), so the two devices' own fits are held
+# on the objective they reach, and their forecasts differ by no more of
+# the span than their spectra differ (+ LINDA_SPAN_TOL)
+LINDA_SPAN_TOL = 1e-4
+LINDA_PSI_TOL = 1e-4
+LINDA_OBJECTIVE_RTOL = 0.01
+LINDA_ERROR_MODEL_RTOL = 1e-3
+
+
+class _FitRecorder:
+    """Wraps ``linda._fit_kernels``: records each call's arguments and
+    spectra, or hands over given spectra in call order."""
+
+    def __init__(self, handed=None):
+        self.calls = []
+        self.handed = list(handed) if handed is not None else None
+
+    def __enter__(self):
+        self.real = linda_mod._fit_kernels
+
+        def fit(src, dst, weights, mask, **kw):
+            if self.handed is not None:
+                out = self.handed[len(self.calls)].to(src.device)
+            else:
+                out = self.real(src, dst, weights, mask, **kw)
+            self.calls.append(((src, dst, weights, mask), out))
+            return out
+
+        linda_mod._fit_kernels = fit
+        return self
+
+    def __exit__(self, *exc):
+        linda_mod._fit_kernels = self.real
+
+
+def _fit_objective(args, spectra):
+    """The fit's objective of each feature's kernel, on the CPU."""
+    src, dst, w, mask = (x.detach().cpu() for x in args)
+    k = spectra.detach().cpu()
+    maskf = mask.to(torch.float32)
+    pred = (linda_mod._conv_kernels(torch.where(mask, src, 0.0), k)
+            / linda_mod._conv_mask_norm(k, mask))
+    wsel = w * (w > 1e-3) * maskf
+    return torch.sum(wsel * (pred - torch.where(mask, dst, 0.0)) ** 2, dim=(1, 2)).double()
+
+
+def _objectives_held(label, args, card, cpu):
+    """Raise unless each feature's objective under the card's spectra is
+    within LINDA_OBJECTIVE_RTOL of the CPU's; returns the comparison."""
+    oc, orf = _fit_objective(args, card), _fit_objective(args, cpu)
+    rel = float(((oc - orf).abs() / orf.abs().clamp(min=1e-30)).max())
+    rec = {"objective_max_rel_diff": rel, "tol": LINDA_OBJECTIVE_RTOL,
+           "spectra_max_abs_diff": float((card.detach().cpu() - cpu.detach().cpu()).abs().max()),
+           "features": int(card.shape[0])}
+    if rel > LINDA_OBJECTIVE_RTOL:
+        raise AssertionError(f"{label}: the card's fit reaches another objective: {rec}")
+    return rec
+
+
+def _linda_inputs():
+    """The bench's LINDA inputs: 3 rain-rate frames and the velocity."""
+    _, velocity = bench_inputs(SIDE)
+    return bench_rain(SIDE)[:3], velocity
+
+
+def _timed_linda(label, kw, frames, warm_up=True):
+    """LINDA through ``nowcasts.get_method`` on numpy inputs (to the card by
+    default): a warm-up (unless ``warm_up`` is False), then one run timed
+    with ``measure_time=True``, the launch counts set to 0 just before and
+    read just after, which must all be 0; the fits' spectra recorded.
+    Returns (output, record, fits)."""
+    rain, velocity = _linda_inputs()
+    f = nowcasts.get_method("linda")
+    if warm_up:
+        f(rain, velocity, N_LEADS, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _FitRecorder() as rec:
+        _kernels.reset_launches()
+        t0 = time.time()
+        out, init_s, loop_s = f(rain, velocity, N_LEADS, measure_time=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches(label, launches, {})
+    if not out.is_cuda or torch.isinf(out).any():
+        raise AssertionError(f"{label}: output on {out.device} or infinite values")
+    return out, {"wall_s": wall, "init_s": init_s, "loop_s": loop_s,
+                 "max_memory_allocated": peak, "launches": launches,
+                 "frames": frames}, rec.calls
+
+
+def phase_linda(name, smi):
+    """Paths T and U: LINDA at 512^2 with 12 leads through
+    ``nowcasts.get_method("linda")``, each timed once with every hand
+    kernel's launch count 0.  T (the domain, deterministic; after a
+    warm-up) against a CPU run of the port from the card's fitted spectra
+    and against the CPU's own fits; U (blob features, 10 members, BPS)
+    after its deterministic parts (features, fits, psi, advection mask,
+    AR window, hindcast, error model, one perturbation field of one white
+    spectrum) are held against the CPU's, which warms the card up for it
+    (its init is minutes of host error-model fits, so it runs once), with
+    its members spreading at every lead.  Returns the launch counts by
+    path."""
+    common = {"device": name, "nvidia_smi": smi}
+    rain, velocity = _linda_inputs()
+    f = nowcasts.get_method("linda")
+    by_path = {}
+
+    # T: the bench's linda_512
+    kw_t = LINDA_PATHS["T"]
+    out, rec, card_fits = _timed_linda("T", kw_t, N_LEADS)
+    if tuple(out.shape) != (N_LEADS, SIDE, SIDE):
+        raise AssertionError(f"T: output shape {tuple(out.shape)}")
+    with _FitRecorder(handed=[k.cpu() for _, k in card_fits]):
+        ref = f(rain, velocity, N_LEADS, device="cpu", **kw_t)
+    rec["card_vs_cpu_same_spectra"] = _nanclose("T", out, ref, LINDA_SPAN_TOL)
+    t1 = time.time()
+    with _FitRecorder() as cpu_rec:
+        own = f(rain, velocity, N_LEADS, device="cpu", **kw_t)
+    rec["cpu_s"] = time.time() - t1
+    fits = [_objectives_held(f"T fit {i + 1}", cpu_rec.calls[i][0], card_fits[i][1],
+                             cpu_rec.calls[i][1]) for i in range(2)]
+    dk = max(x["spectra_max_abs_diff"] for x in fits)
+    rec["fits_card_vs_cpu"] = fits
+    rec["card_vs_cpu_own_fits"] = _nanclose("T own fits", out, own, dk + LINDA_SPAN_TOL)
+    rec["frames_per_s"] = N_LEADS / rec["wall_s"]
+    by_path["T"] = rec["launches"]
+    emit({"phase": "path T", "method": "linda", "shape": list(out.shape), **kw_t, **rec,
+          **common})
+    del out, ref, own
+
+    # U: probabilistic LINDA as the JAX module's defaults run it
+    kw_u = LINDA_PATHS["U"]
+    E = kw_u["n_ens_members"]
+    parts = _linda_parts(rain, velocity)
+    out, rec, _ = _timed_linda("U", kw_u, E * N_LEADS, warm_up=False)
+    if tuple(out.shape) != (E, N_LEADS, SIDE, SIDE):
+        raise AssertionError(f"U: output shape {tuple(out.shape)}")
+    spread = torch.nanmean(out.std(dim=0).reshape(N_LEADS, -1), dim=1).cpu().numpy()
+    if not bool((spread > 0).all()):
+        raise AssertionError(f"U: no ensemble spread at some lead: {spread.tolist()}")
+    rec["spread_per_lead"] = spread.tolist()
+    rec["member_frames_per_s"] = E * N_LEADS / rec["wall_s"]
+    rec["parts_card_vs_cpu"] = parts
+    by_path["U"] = rec["launches"]
+    del out
+    emit({"phase": "path U", "method": "linda", **kw_u, "shape": [E, N_LEADS, SIDE, SIDE],
+          **rec, **common})
+    return by_path
+
+
+def _linda_parts(rain, velocity):
+    """U's deterministic parts on the card and on the CPU from the same
+    inputs: the features (the card's are used on both from there); each fit's objective (the CPU's own kernel
+    1 against the card's); from the card's spectra, psi, the advection
+    mask, the AR window and the one-step hindcast; the error model from
+    each hindcast; one perturbation field a member from one white draw."""
+    dev = torch.device("cuda")
+    cpu = torch.device("cpu")
+    m = n = SIDE
+    out = {}
+    # the LoG responses differ in their last bits (cuDNN's float32 sums
+    # against the CPU's), so a peak between two pixels of nearly equal
+    # response may sit one pixel over: the same features in the same
+    # order, each within 1 px
+    coords, coords_cpu = (
+        linda_mod._detect_features(rain[-1], "blob", LINDA_MAX_FEATURES, {}, d)
+        for d in (dev, cpu))
+    if coords.shape != coords_cpu.shape or np.abs(coords - coords_cpu).max() > 1.0:
+        raise AssertionError(f"U: features differ: {coords} against {coords_cpu}")
+    out["features_equal"] = int(np.all(coords == coords_cpu, axis=1).sum())
+    out["features"] = int(len(coords))
+    print(f"U: {len(coords)} features", flush=True)
+    w = linda_mod._compute_window_weights(coords, m, n, 0.2 * m)
+    iw = (w / w.sum(axis=0, keepdims=True)).astype(np.float32)
+    w = w.astype(np.float32)
+
+    def init(device, handed=None):
+        with _FitRecorder(handed) as rec:
+            res = linda_mod._linda_init_core(
+                torch.as_tensor(rain, device=device), torch.as_tensor(velocity, device=device),
+                torch.as_tensor(w, device=device), torch.as_tensor(iw, device=device), 1)
+        return res, rec.calls
+
+    t0 = time.time()
+    card, calls = init(dev)
+    torch.cuda.synchronize()
+    out["init_card_s"] = time.time() - t0
+    # the CPU's own kernel 1 on the card's inputs, against the card's
+    args = calls[0][0]
+    own = linda_mod._fit_kernels(*(x.cpu() for x in args))
+    out["fit_1"] = _objectives_held("U fit 1", args, calls[0][1], own)
+    ref, _ = init(cpu, handed=[k.cpu() for _, k in calls])
+    np.testing.assert_array_equal(card[6].cpu().numpy(), ref[6].numpy())
+    psi = float((card[4].cpu() - ref[4]).abs().max())
+    if psi > LINDA_PSI_TOL:
+        raise AssertionError(f"U: psi differs by {psi}")
+    out["psi_max_abs_diff"] = {"value": psi, "tol": LINDA_PSI_TOL}
+    out["ar_window"] = _nanclose("U ar window", card[5], ref[5], LINDA_SPAN_TOL)
+
+    def hindcast(parts, device):
+        return linda_mod._linda_scan(
+            parts[8], torch.as_tensor(rain[-2], device=device),
+            torch.as_tensor(velocity, device=device), *parts[:4],
+            torch.as_tensor(iw, device=device), parts[4], parts[6], None,
+            linda_mod._degenerate_perturbations((m, n), device), 1, False, 1, (m, n))[0, 0]
+
+    h_card, h_cpu = hindcast(card, dev), hindcast(ref, cpu)
+    out["hindcast"] = _nanclose("U hindcast", h_card, h_cpu, LINDA_SPAN_TOL)
+
+    def error_model(fct):
+        fct = fct.cpu().numpy()
+        obs = rain[-1]
+        err = fct / np.where(obs != 0, obs, np.nan)
+        ok = ((fct >= 1.0) & (obs >= 0.5)) | ((fct >= 0.5) & (obs >= 1.0))
+        return linda_mod._estimate_error_model(
+            np.where(ok, err, np.nan), coords, (m, n), 0.15 * m, 0.25 * m, 0.2 * m,
+            device="cpu")
+
+    t0 = time.time()
+    pert_card = error_model(h_card)
+    out["error_model_host_s"] = time.time() - t0
+    pert_cpu = error_model(h_cpu)
+    em = {}
+    for key in ("s", "loc", "std", "ampl", "weights"):
+        a, b = pert_card[key].double(), pert_cpu[key].double()
+        d = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+        em[key] = d
+        if d > LINDA_ERROR_MODEL_RTOL:
+            raise AssertionError(f"U: error model {key} differs by {d} of its largest value")
+    out["error_model_max_rel_diff"] = {**em, "tol": LINDA_ERROR_MODEL_RTOL,
+                                       "fitted_features": int((pert_cpu["std"] > 0).sum())}
+    gen = torch.Generator().manual_seed(9)
+    white = fftgenerators._spectral_white(gen, (m, n), LINDA_MEMBERS)
+    p_card = linda_mod._perturbations_from_white(
+        white.to(dev), {k: v.to(dev) for k, v in pert_cpu.items()}, (m, n))
+    p_cpu = linda_mod._perturbations_from_white(white, pert_cpu, (m, n))
+    out["perturbation"] = _nanclose("U perturbation", p_card, p_cpu, LINDA_SPAN_TOL)
+    return out
+
+
+# the verification phase: path A's last lead against a later synthetic frame
+VERIFY_THR_DB = 0.0  # 1 mm/h
+VERIFY_SCALES = (4, 16, 64)
+
+
+def phase_verification(name, smi, forecast):
+    """The scores of ``verification/`` on path A's last lead (96 x 512^2,
+    dB) against the synthetic frame of that lead (the bench's sequence
+    continued to 15 frames): CRPS, the rank histogram, the reliability
+    diagram and ROC of exceeding 1 mm/h, and on the ensemble mean FSS at
+    three scales, the categorical (CSI, POD, FAR) and continuous (MAE,
+    RMSE, corr) scores, the intensity-scale matrix, the binary MSE and
+    SAL (in rain rate), each on the card and on the CPU with its
+    tolerance and its card seconds."""
+    from pysteps_tpu_torch import verification as ver
+    from pysteps_tpu_torch.verification import ensscores, probscores, spatialscores
+
+    frames, _ = bench_inputs(SIDE, n_frames=3 + N_LEADS)
+    obs_np = frames[-1]
+    dev = torch.device("cuda")
+    ens = {"cuda": forecast, "cpu": forecast.cpu()}
+    obs = {"cuda": torch.as_tensor(obs_np, device=dev), "cpu": torch.as_tensor(obs_np)}
+    mean = {k: torch.nanmean(v, dim=0) for k, v in ens.items()}
+    prob = {k: torch.mean((torch.nan_to_num(v, nan=-99.0) >= VERIFY_THR_DB).float(), dim=0)
+            for k, v in ens.items()}
+
+    def rain_rate(x):
+        return torch.where(x > -10.0, 10.0 ** (x / 10.0), 0.0)
+
+    scores = {
+        "CRPS": (lambda d: probscores.CRPS(ens[d], obs[d]), 1e-4),
+        "rankhist": (lambda d: ensscores.rankhist(ens[d], obs[d]), 1e-6),
+        "reldiag": (lambda d: probscores.reldiag(prob[d], obs[d], VERIFY_THR_DB), 1e-6),
+        "ROC": (lambda d: probscores.ROC_curve(prob[d], obs[d], VERIFY_THR_DB,
+                                               compute_area=True), 1e-6),
+        **{f"FSS scale {s}": ((lambda d, s=s: spatialscores.fss(
+            mean[d], obs[d], VERIFY_THR_DB, s)), 1e-4) for s in VERIFY_SCALES},
+        "det_cat_fct": (lambda d: ver.detcatscores.det_cat_fct(
+            mean[d], obs[d], VERIFY_THR_DB, "csi, pod, far"), 1e-6),
+        "det_cont_fct": (lambda d: ver.detcontscores.det_cont_fct(
+            mean[d], obs[d], "mae, rmse, corr_p"), 1e-4),
+        "intensity_scale": (lambda d: spatialscores.intensity_scale(
+            mean[d], obs[d], "fss", [VERIFY_THR_DB, 5.0, 10.0], VERIFY_SCALES), 1e-4),
+        "binary_mse": (lambda d: spatialscores.binary_mse(mean[d], obs[d], VERIFY_THR_DB)[0],
+                       1e-4),
+        # host code on the two devices' ensemble means, which differ in
+        # their last bits (the order of nanmean's sums)
+        "SAL": (lambda d: ver.get_method("sal")(rain_rate(mean[d]), rain_rate(obs[d])), 1e-5),
+    }
+    rec = {"phase": "verification", "shape": list(forecast.shape), "thr_db": VERIFY_THR_DB,
+           "device": name, "nvidia_smi": smi}
+    for label, (fn, tol) in scores.items():
+        fn("cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = fn("cuda")
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        ref = fn("cpu")
+        c = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in _leaves(card)])
+        r = np.concatenate([np.ravel(np.asarray(x, np.float64)) for x in _leaves(ref)])
+        if c.shape != r.shape or not np.array_equal(np.isnan(c), np.isnan(r)):
+            raise AssertionError(f"verification {label}: card {c} against CPU {r}")
+        scale = max(float(np.nanmax(np.abs(r))), 1e-30)
+        diff = float(np.nanmax(np.abs(c - r))) if np.isfinite(r).any() else 0.0
+        rec[label] = {"card": c.tolist() if c.size <= 8 else None, "max_abs_diff": diff,
+                      "of_max": diff / scale, "tol_of_max": tol, "card_s": card_s}
+        if diff > tol * scale:
+            raise AssertionError(f"verification {label}: card and CPU differ: {rec[label]}")
+    emit(rec)
+
+
+def _leaves(x):
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in _leaves(y)]
+    return [x]
+
+
 
 def main():
     name, smi = phase_device()
@@ -1716,6 +2070,8 @@ def main():
     phase_tf32(name, smi)
     by_path.update(phase_motion(name, smi))
     phase_postprocessing(name, smi, captured["forecast_last_lead"])
+    phase_verification(name, smi, captured["forecast_last_lead"])
+    by_path.update(phase_linda(name, smi))
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

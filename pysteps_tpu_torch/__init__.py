@@ -26,6 +26,7 @@ from pysteps_tpu_torch import (  # noqa: F401
     timeseries,
     tracking,
     utils,
+    verification,
 )
 
 __version__ = "0.1.0"

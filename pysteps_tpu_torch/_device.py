@@ -1,5 +1,6 @@
 """The port's device rule: CUDA unless the caller asks for the CPU."""
 
+import numpy as np
 import torch
 
 
@@ -35,5 +36,8 @@ def device_of(x, device=None):
 def as_device_tensor(x, device=None, dtype=None):
     """``x`` as a tensor on ``device_of(x, device)``: a tensor keeps its
     own device unless ``device`` is given, anything else goes to the card
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU.  A numpy view with negative
+    strides (``x[::-1]``) is copied first, as torch cannot wrap it."""
+    if isinstance(x, np.ndarray) and any(s < 0 for s in x.strides):
+        x = np.ascontiguousarray(x)
     return torch.as_tensor(x, dtype=dtype, device=device_of(x, device))

@@ -2,6 +2,7 @@ from pysteps_tpu_torch.nowcasts import (  # noqa: F401
     anvil,
     extrapolation,
     lagrangian_probability,
+    linda,
     sprog,
     sseps,
     steps,

@@ -1,11 +1,12 @@
 """Nowcast-method registry (counterpart of
 ``pysteps_tpu/nowcasts/interface.py``): every method of the JAX package's
-registry but ``linda``."""
+registry."""
 
 from pysteps_tpu_torch.nowcasts import (
     anvil,
     extrapolation,
     lagrangian_probability,
+    linda,
     sprog,
     sseps,
     steps,
@@ -28,6 +29,7 @@ _nowcast_methods = {
     "steps": steps.forecast,
     "anvil": anvil.forecast,
     "sseps": sseps.forecast,
+    "linda": linda.forecast,
 }
 
 

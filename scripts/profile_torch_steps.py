@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
-                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R]
+                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R|T|U]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
@@ -13,7 +13,9 @@ member-frames/s and ``--no-chain`` and ``--shapes`` do not apply;
 ``--path N`` to ``R``: the motion solver of ``chip_smoke.py``'s paths
 N-R at 512^2, LK with the 12-lead extrapolation of its flow, VET,
 Proesmans, DARTS or Farneback, for which retrievals/s stands in, or
-frames/s for N), once
+frames/s for N; ``--path T`` or ``U``: LINDA at 512^2 with 12 leads on
+the bench's numpy rain-rate frames, T deterministic with the domain as
+one feature (frames/s), U with blob features, 10 members and BPS), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
@@ -48,8 +50,8 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BENCH_KWARGS, MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, bench_inputs,
-    nowcast_path, takes_measure_time,
+    BENCH_KWARGS, LINDA_PATHS, MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE,
+    _linda_inputs, bench_inputs, nowcast_path, takes_measure_time,
 )
 from pysteps_tpu_torch import motion, nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
@@ -86,12 +88,14 @@ def main():
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
-    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS],
+    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS, *LINDA_PATHS],
                     default="A", help="chip_smoke.py's path to run (F, G, H: the other noise "
-                    "generators; I-M: the other nowcasts; N-R: the motion solvers)")
+                    "generators; I-M: the other nowcasts; N-R: the motion solvers; T, U: "
+                    "LINDA)")
     args = ap.parse_args()
     moving = args.path in MOTION_PATHS
-    nowcast = args.path in "IJKLM" or moving
+    linda = args.path in LINDA_PATHS
+    nowcast = args.path in "IJKLM" or moving or linda
     if nowcast and (args.no_chain or args.shapes):
         raise SystemExit("profile_torch_steps: --no-chain and --shapes are STEPS' options")
     E, side, T, extra_kw = (
@@ -123,6 +127,18 @@ def main():
                 out = nowcasts.get_method("extrapolation")(x[-1], out, N_LEADS)
             torch.cuda.synchronize()
             return time.time() - t0, None, None, out
+    elif linda:
+        rain, velocity = _linda_inputs()
+        f = nowcasts.get_method("linda")
+        f_kw = dict(LINDA_PATHS[args.path], measure_time=True)
+        E, side = f_kw.get("n_ens_members", 1) if args.path == "U" else 1, SIDE
+        out_shape = ((E,) if args.path == "U" else ()) + (T, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out, init_s, loop_s = f(rain, velocity, T, **f_kw)
+            torch.cuda.synchronize()
+            return time.time() - t0, init_s, loop_s, out
     elif nowcast:
         f, f_args, f_kw, frames = nowcast_path(args.path, dev)
         timed = takes_measure_time(f)

@@ -122,7 +122,8 @@ def _numpy_entry_points():
          fftgenerators.initialize_nonparam_2d_fft_filter(R, device=device)["field"]),
         ("initialize_bps", lambda device: motion.initialize_bps(
             series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
-    ] + _numpy_nowcast_entry_points() + _numpy_motion_entry_points()
+    ] + (_numpy_nowcast_entry_points() + _numpy_motion_entry_points()
+         + _numpy_linda_feature_and_score_entry_points())
 
 
 def _numpy_nowcast_entry_points():
@@ -229,6 +230,50 @@ def _numpy_motion_entry_points():
     ]
 
 
+def _numpy_linda_feature_and_score_entry_points():
+    """LINDA, the blob detector and the scores on 32^2
+    numpy inputs; host results are wrapped as tensors (the card call
+    raises before)."""
+    from pysteps_tpu_torch import nowcasts, verification
+    from pysteps_tpu_torch.feature import blob
+    from pysteps_tpu_torch.verification import ensscores, probscores, spatialscores
+
+    rng = np.random.default_rng(6)
+    yy, xx = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    rain = np.stack([
+        8.0 * np.exp(-((xx - 12 - t) ** 2 + (yy - 14 - 0.5 * t) ** 2) / 30.0)
+        for t in range(3)]).astype(np.float32)
+    vel = np.zeros((2, 32, 32), np.float32)
+    vel[0], vel[1] = 1.0, 0.5
+    ens = np.maximum(rng.gamma(0.8, 3.0, (4, 32, 32)) - 1.0, 0.0).astype(np.float32)
+    obs = ens[0] * 0.8 + 0.1
+
+    def score(f):
+        return lambda device: torch.as_tensor(np.asarray(f(device), np.float64))
+
+    return [
+        ("linda.forecast", lambda device: nowcasts.get_method("linda")(
+            rain, vel, 2, feature_method="domain", add_perturbations=False, device=device)),
+        ("blob.detection", lambda device: torch.as_tensor(blob.detection(rain[-1],
+                                                                         device=device))),
+        ("det_cat_fct", score(lambda device: verification.get_method("csi")(
+            ens[1], obs, thr=1.0, device=device))),
+        ("det_cont_fct", score(lambda device: verification.get_method("rmse")(
+            ens[1], obs, device=device))),
+        ("CRPS", score(lambda device: probscores.CRPS(ens, obs, device=device))),
+        ("reldiag", score(lambda device: probscores.reldiag(
+            np.mean(ens > 1.0, axis=0), obs, 1.0, min_count=1, device=device)[0])),
+        ("ROC_curve", score(lambda device: probscores.ROC_curve(
+            np.mean(ens > 1.0, axis=0), obs, 1.0, device=device)[0])),
+        ("rankhist", score(lambda device: ensscores.rankhist(ens, obs, device=device))),
+        ("ensemble_skill", score(lambda device: ensscores.ensemble_skill(
+            ens, obs, "rmse", device=device))),
+        ("fss", score(lambda device: spatialscores.fss(ens[1], obs, 1.0, 4, device=device))),
+        ("binary_mse", score(lambda device: spatialscores.binary_mse(
+            ens[1], obs, 1.0, device=device)[0])),
+    ]
+
+
 @pytest.mark.parametrize("name", [n for n, _ in _numpy_entry_points()])
 def test_numpy_input_goes_to_cuda_by_default(name, monkeypatch):
     """numpy input runs where the caller says: on the CPU with
@@ -238,3 +283,31 @@ def test_numpy_input_goes_to_cuda_by_default(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         call(None)
+
+
+@pytest.mark.parametrize("module", ["pysteps_tpu_torch.feature.tstorm",
+                                    "pysteps_tpu_torch.tracking.tdating",
+                                    "pysteps_tpu_torch.verification.plots",
+                                    "pysteps_tpu_torch.verification.salscores"])
+def test_host_modules_import_without_pandas_and_matplotlib(module, monkeypatch):
+    """tstorm, tdating, SAL and the plots import with pandas and
+    matplotlib hidden; tstorm's centroids and labels run without them."""
+    import importlib
+
+    for name in ("pandas", "matplotlib", "matplotlib.pyplot"):
+        monkeypatch.setitem(sys.modules, name, None)
+    for name in ("pysteps_tpu_torch.feature.tstorm", "pysteps_tpu_torch.tracking.tdating",
+                 "pysteps_tpu_torch.verification.plots",
+                 "pysteps_tpu_torch.verification.salscores"):
+        monkeypatch.delitem(sys.modules, name, raising=False)
+    mod = importlib.import_module(module)
+    tstorm = importlib.import_module("pysteps_tpu_torch.feature.tstorm")
+    yy, xx = np.meshgrid(np.arange(48), np.arange(48), indexing="ij")
+    field = 50.0 * np.exp(-((xx - 20) ** 2 + (yy - 24) ** 2) / 30.0)
+    assert tstorm.detection(field, minsize=5, output_feat=True).tolist() == [[20, 24]]
+    assert tstorm._detect(field, minsize=5)[1].max() == 1
+    with pytest.raises(ImportError, match="pandas"):
+        tstorm.detection(field, minsize=5)
+    if module.endswith("plots"):
+        with pytest.raises(ImportError):
+            mod.plot_rankhist(np.ones(3) / 3)

@@ -69,20 +69,25 @@ def _close(ref, out, rel, of_span=True, mean_rel=None):
 
 
 def test_registry_matches_jax_but_linda():
+    """The two registries are equal, ``linda`` included (the name is kept
+    from before the port had it): the same names in the same order, each
+    with JAX's signature plus ``device``, the same errors."""
     j_names = list(jnowcasts.interface._nowcast_methods)
     t_names = list(tnowcasts.interface._nowcast_methods)
-    assert t_names == [n for n in j_names if n != "linda"]
+    assert t_names == j_names and "linda" in t_names
     for name in t_names:
         j_params = list(inspect.signature(jnowcasts.get_method(name)).parameters)
         t_params = list(inspect.signature(tnowcasts.get_method(name)).parameters)
         expected = j_params if name == "eulerian" else j_params + ["device"]
         assert t_params == expected, name
-    with pytest.raises(ValueError) as err:
-        tnowcasts.get_method("linda")
-    assert str(err.value) == f"unknown nowcasting method linda; available: {t_names}"
-    with pytest.raises(ValueError, match="name is None"):
-        tnowcasts.get_method(None)
+    for package, names in ((jnowcasts, j_names), (tnowcasts, t_names)):
+        with pytest.raises(ValueError) as err:
+            package.get_method("lindax")
+        assert str(err.value) == f"unknown nowcasting method lindax; available: {names}"
+        with pytest.raises(ValueError, match="name is None"):
+            package.get_method(None)
     assert tnowcasts.get_method("SPROG") is tsprog.forecast
+    assert tnowcasts.get_method("LINDA") is tnowcasts.linda.forecast
 
 
 @pytest.mark.parametrize("name", ["extrapolation", "lagrangian", "eulerian"])

@@ -256,5 +256,3 @@ def test_unported_options_raise():
     ):
         with pytest.raises(ValueError):
             f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
-    with pytest.raises(ValueError):
-        tnowcasts.get_method("linda")
