@@ -106,6 +106,19 @@ Phases, each printing JSON lines:
    at every lead, and its deterministic parts (features, kernel fits,
    psi, advection mask, AR window, hindcast, error model, one
    perturbation field of one white spectrum) are held against the CPU's;
+19. paths V, V', W and X, blending at the JAX bench's operating points
+   through ``blending.get_method``: V STEPS blending at ``blend_512`` (96
+   members x 512^2 x 12 leads), V' ``blend_1024`` (member chunks of 12,
+   bfloat16 output) cut to 6 leads, W the PCA EnKF at ``pca_enkf_256``
+   (24 members, 60 minutes, the NWP ensemble on the card), X linear and
+   salient blending of the 512^2 extrapolation nowcast; each timed once
+   after a warm-up with its exact K1 (and, on V and V', K4 from a mask)
+   launches, members that spread at every lead, and a check against the
+   CPU on the card's branch: V deterministic at 8 x 256^2 x 6 with the
+   CPU given the card's displacement bound, V' chunks of 2 against one
+   chunk and its bfloat16 output the float32 one rounded, one EnKF
+   correction and nowcast step from one state, X's two methods; skill
+   files go to a temporary directory;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -114,12 +127,15 @@ and the script exits non-zero without the ``ok`` line.
 """
 
 import contextlib
+import datetime
+import inspect
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -129,7 +145,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from pysteps_tpu_torch import blending  # noqa: E402
 from pysteps_tpu_torch import cascade as cascade_mod  # noqa: E402
+from pysteps_tpu_torch.blending import pca_ens_kalman_filter as pca_enkf_mod  # noqa: E402
+from pysteps_tpu_torch.blending import steps as blend_mod  # noqa: E402
 from pysteps_tpu_torch import motion, noise, nowcasts  # noqa: E402
 from pysteps_tpu_torch.extrapolation import semilagrangian  # noqa: E402
 from pysteps_tpu_torch.motion import farneback as farneback_mod  # noqa: E402
@@ -149,7 +168,9 @@ from pysteps_tpu_torch.ops import warp as warp_mod  # noqa: E402
 from pysteps_tpu_torch.postprocessing.probmatching import _prepare_cdf_target  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+import torch_blending_checks as blend_checks  # noqa: E402
 from helpers import make_synthetic_sequence  # noqa: E402
+from torch_blending_checks import nanclose as _nanclose  # noqa: E402
 
 N_MEMBERS, SIDE, N_LEADS = 96, 512, 12
 AR_ORDER = 2
@@ -1169,43 +1190,13 @@ def phase_noise_parity(name, smi):
         fftgenerators._white_normal = real_draw
 
 
-def _nanclose(label, card, cpu, rel, of_span=True, frac=None, mean_rel=None, max_rel=None):
-    """Raise unless the card's output and the CPU's have identical NaN sets
-    and differ by at most ``rel`` x span (x 1 without ``of_span``) at
-    every pixel, or, with ``frac``, at that share of the pixels, by at
-    most ``mean_rel`` x span on average and, with ``max_rel``, by at most
-    that x span anywhere; returns the comparison."""
-    c = torch.as_tensor(card).detach().cpu().double().numpy()
-    r = torch.as_tensor(cpu).detach().double().numpy()
-    if c.shape != r.shape:
-        raise AssertionError(f"{label}: card shape {c.shape} != CPU shape {r.shape}")
-    nan_c, nan_r = np.isnan(c), np.isnan(r)
-    if not np.array_equal(nan_c, nan_r):
-        raise AssertionError(f"{label}: NaN sets differ ({int((nan_c != nan_r).sum())} pixels)")
-    scale = float(np.nanmax(r) - np.nanmin(r)) if of_span else 1.0
-    diff = np.abs(np.nan_to_num(c) - np.nan_to_num(r))
-    rec = {"tol": rel, "of": "span" if of_span else "value", "scale": scale,
-           "max_abs_diff": float(diff.max()), "max_abs_diff_over_scale": float(diff.max() / scale),
-           "mean_abs_diff_over_scale": float(diff.mean() / scale),
-           "nan_fraction": float(nan_r.mean())}
-    if frac is None:
-        ok = diff.max() <= rel * scale
-    else:
-        rec["frac_within_tol"] = float((diff <= rel * scale).mean())
-        rec.update(frac_required=frac, mean_tol=mean_rel, max_tol=max_rel)
-        ok = rec["frac_within_tol"] >= frac and diff.mean() <= mean_rel * scale and (
-            max_rel is None or diff.max() <= max_rel * scale)
-    if not ok:
-        raise AssertionError(f"{label}: card and CPU disagree: {rec}")
-    return rec
-
-
-def _timed_nowcast(label, f, args, kw, expected, frames):
-    """``f(*args, **kw)`` once to warm up, then timed with the launch
-    counts set to 0 just before and read just after (with
-    ``measure_time=True`` where ``f`` takes it).  Raises unless the counts
-    are ``expected``; returns (output, record)."""
-    f(*args, **kw)
+def _timed_nowcast(label, f, args, kw, expected, frames, warm_up=None):
+    """``f(*args, **kw)`` once to warm up (inside the context ``warm_up``
+    where given), then timed with the launch counts set to 0 just before
+    and read just after (with ``measure_time=True`` where ``f`` takes it).
+    Raises unless the counts are ``expected``; returns (output, record)."""
+    with warm_up or contextlib.nullcontext():
+        f(*args, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timed = takes_measure_time(f)
@@ -1252,7 +1243,7 @@ def nowcast_path(label, dev):
 
 
 def takes_measure_time(f):
-    return "measure_time" in f.__code__.co_varnames[:f.__code__.co_argcount]
+    return "measure_time" in inspect.signature(f).parameters
 
 
 def phase_nowcasts(name, smi):
@@ -2047,6 +2038,305 @@ def phase_verification(name, smi, forecast):
     emit(rec)
 
 
+# blending at the JAX bench's operating points (bench.py:78-87, :257-343):
+# STEPS blending's members, the leads, members a chunk and grid of V', the
+# PCA EnKF's members and grid, the grid, members and leads of V's
+# card-vs-CPU check, and the blend ramp of X (minutes)
+BLEND_MEMBERS = 96
+BLEND_CHUNK_SIDE, BLEND_CHUNK_LEADS, BLEND_CHUNK = 1024, 6, 12
+ENKF_MEMBERS, ENKF_SIDE, ENKF_LEVELS = 24, 256, 6
+BLEND_PARITY = (256, 8, 6)
+LINEAR_RAMP = (10.0, 50.0)
+# the leads (minutes) at which pca_enkf_256 takes the NWP ensemble as it is
+# (the inflation of the observations has decayed to 0.02), held against the
+# JAX package's run on the same inputs by
+# tests/test_torch_enkf.py::test_pca_enkf_256_schedule_against_jax; each of
+# the other cycles makes one nowcast step
+ENKF_FULL_NWP_LEADS = [55, 60]
+# K1 and K4 at a path's own shapes against their plain versions: K1 within
+# this share of its field's largest magnitude (a lerp of two taps), K4 (a
+# bounded integer distance, scaled) within an absolute 1e-6
+K1_PATH_TOL, K4_PATH_TOL = 1e-5, 1e-6
+
+
+class _PathKernelInputs:
+    """While entered, a copy of the inputs of the last K1 launch of each
+    (axis, field shape, index shape, bound) and of the last K4 launch from
+    a mask of each (shape, radii); the wrappers compute and count as they
+    do without it.  On leaving, each copy is held against the plain
+    version (``rows``) and freed, so that no copy outlives the warm-up;
+    ``k1`` and ``k4`` then map each key to its number of launches."""
+
+    def __init__(self, label):
+        self.label, self.rows = label, None
+
+    def __enter__(self):
+        self.k1, self.k4 = {}, {}
+        self._k1, self._rim = pallas_warp._axis_resample_launch, pallas_dilate._rim
+
+        def k1(field, idx0, frac, D, axis):
+            key = (int(axis), tuple(field.shape), tuple(idx0.shape), int(D))
+            n = self.k1.get(key, (0,))[0]
+            self.k1[key] = (n + 1, field.clone(), idx0.clone(), frac.clone())
+            return self._k1(field, idx0, frac, D, axis)
+
+        def rim(x, thr, strict, kr, r, counter):
+            if counter == "rim_from_mask":
+                key = (tuple(x.shape), int(kr), int(r))
+                n = self.k4.get(key, (0,))[0]
+                self.k4[key] = (n + 1, x.clone())
+            return self._rim(x, thr, strict, kr, r, counter)
+
+        pallas_warp._axis_resample_launch, pallas_dilate._rim = k1, rim
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        pallas_warp._axis_resample_launch, pallas_dilate._rim = self._k1, self._rim
+        if exc_type is None:
+            self.rows = self._held(self.label)
+        self.k1 = {key: v[0] for key, v in self.k1.items()}
+        self.k4 = {key: v[0] for key, v in self.k4.items()}
+
+    def _held(self, label):
+        """Each captured launch again through its wrapper on the card and
+        through its plain version on the same tensors; raises past
+        ``K1_PATH_TOL`` / ``K4_PATH_TOL`` or where the NaN sets differ."""
+
+        def row(name, out, ref, tol, **extra):
+            torch.cuda.synchronize()
+            if not torch.equal(torch.isnan(out), torch.isnan(ref)):
+                raise AssertionError(f"{label} {name}: NaN sets differ from the plain version")
+            err = float(torch.nan_to_num(out - ref).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"{label} {name} at {extra}: |kernel - plain| {err} > {tol}")
+            return dict(name=name, max_abs_err=err, tol=tol, **extra)
+
+        rows = []
+        for (axis, shape, ishape, D), (n, field, idx0, frac) in sorted(self.k1.items()):
+            scale = float(torch.nan_to_num(field).abs().max())
+            rows.append(row(f"K1_resample_axis{axis}",
+                            pallas_warp.axis_resample(field, idx0, frac, D, axis),
+                            pallas_warp._axis_resample(field, idx0, frac, D, axis),
+                            K1_PATH_TOL * scale, shape=list(shape), index_shape=list(ishape),
+                            D=D, launches_in_warm_up=n))
+        for (shape, kr, r), (n, mask) in sorted(self.k4.items()):
+            rows.append(row("K4_rim_from_mask", pallas_dilate.dilated_rim(mask, kr, r),
+                            pallas_dilate._rim_plain((mask > 0).to(torch.float32), 0.5, kr, r),
+                            K4_PATH_TOL, shape=list(shape), dtype=str(mask.dtype), kr=kr, r=r,
+                            launches_in_warm_up=n))
+        return rows
+
+
+def blend_inputs(side):
+    """The bench's blending inputs (``bench.py:257-262``): the first 3 of
+    4 dB frames, one NWP model (the last frame repeated over 13 leads plus
+    0.3 randn from ``RandomState(1)``) and the motion field."""
+    precip_db, velocity = bench_inputs(side, n_frames=4)
+    db = precip_db[:3]
+    nwp = np.repeat(db[-1][None], N_LEADS + 1, axis=0)
+    nwp = (nwp + 0.3 * np.random.RandomState(1).randn(*nwp.shape)).astype(np.float32)[None]
+    return db, nwp, velocity
+
+
+def _blend_kw(E, skill_dir, **extra):
+    """The bench's ``blending.steps.forecast`` keywords (``bench.py:274-280``),
+    updated by ``extra``."""
+    return dict(dict(n_ens_members=E, n_cascade_levels=8, precip_thr=-10.0, kmperpixel=1.0,
+                     seed=43, noise_method="nonparametric", vel_pert_method=None,
+                     outdir_path_skill=skill_dir), **extra)
+
+
+def _spread(out, T):
+    spread = torch.nanmean(out.float().std(dim=0).reshape(T, -1), dim=1).cpu().numpy()
+    if not bool((spread > 0).all()):
+        raise AssertionError(f"no ensemble spread at some lead: {spread.tolist()}")
+    return spread.tolist()
+
+
+def _blend_path(label, side, T, E, skill_dir, expected, **extra):
+    """STEPS blending through ``blending.get_method("steps")`` at ``E``
+    members x ``side``^2 x ``T`` leads on the bench's inputs: a warm-up,
+    then one run timed with its exact launch counts.  The warm-up's last
+    K1 and K4 launches of each shape are then held against the plain
+    versions (:class:`_PathKernelInputs`, before the timed run), among
+    them the composite's warp at the path's bound and the per-lead rim,
+    on all members of a chunk.  Returns (record, output)."""
+    db, nwp, velocity = blend_inputs(side)
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(db, device=dev), torch.as_tensor(nwp, device=dev),
+            torch.as_tensor(velocity, device=dev), torch.as_tensor(velocity[None], device=dev),
+            T, 5.0)
+    f = blending.get_method("steps")
+    captured = _PathKernelInputs(label)
+    out, rec = _timed_nowcast(label, f, args, _blend_kw(E, skill_dir, **extra), expected, E * T,
+                              warm_up=captured)
+    if tuple(out.shape) != (E, T, side, side) or not out.is_cuda:
+        raise AssertionError(f"{label}: output {tuple(out.shape)} on {out.device}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: non-finite values in the output")
+    rec["spread_per_lead"] = _spread(out, T)
+    rec["member_frames_per_s"] = E * T / rec["wall_s"]
+    rec["max_disp"] = blend_mod._scan_bound(
+        torch.as_tensor(velocity)[None, None], T, 5.0, False, None, None, 1.0, (side, side))
+    rec["value_range"] = [float(out.min()), float(out.max())]
+    members = (extra.get("member_chunk") or E, side, side)
+    for axis in (0, 1):
+        if (axis, members, members, rec["max_disp"]) not in captured.k1:
+            raise AssertionError(f"{label}: no K1 launch on axis {axis} at {members}, bound "
+                                 f"{rec['max_disp']}: {sorted(captured.k1)}")
+    if not any(key[0] == members for key in captured.k4):
+        raise AssertionError(f"{label}: no K4 launch at {members}: {sorted(captured.k4)}")
+    rec["kernels_at_path_shapes"] = captured.rows
+    return rec, out
+
+
+def _enkf_inputs(dev):
+    """The bench's PCA EnKF inputs (``bench.py:312-343``): 4 dB frames at
+    256^2 (the first 2 observed), 24 NWP members of 13 leads (the third
+    frame plus 0.5 randn from ``RandomState(1)``) on the device, and the
+    timestamps of a 60-minute horizon."""
+    precip_db, velocity = bench_inputs(ENKF_SIDE, n_frames=4)
+    t0 = datetime.datetime(2021, 6, 29, 12, 0)
+    obs_ts = np.array([t0 - datetime.timedelta(minutes=5), t0])
+    nwp_ts = np.array([t0 + datetime.timedelta(minutes=5 * i) for i in range(N_LEADS + 1)])
+    rng = np.random.RandomState(1)
+    nwp = np.stack([
+        np.repeat(precip_db[2][None], N_LEADS + 1, axis=0)
+        + 0.5 * rng.randn(N_LEADS + 1, ENKF_SIDE, ENKF_SIDE)
+        for _ in range(ENKF_MEMBERS)]).astype(np.float32)
+    return precip_db[:2], obs_ts, torch.as_tensor(nwp, device=dev), nwp_ts, velocity, t0
+
+
+def phase_blending(name, smi):
+    """Paths V, V', W and X, each timed once after a warm-up with its exact
+    launch counts; returns the counts by path.
+
+    V, STEPS blending at the bench's ``blend_512`` (96 members x 512^2 x
+    12 leads, 8 levels, nonparametric noise, the resampled CDF target, the
+    incremental mask): a lead samples the blended velocity twice on the
+    coarse grid and warps the composite (K1, one launch an axis each, all
+    members in one launch) and redraws the incremental mask (K4 from a
+    mask), which the init draws once.  V', ``blend_1024`` (member chunks
+    of 12, bfloat16 output) cut to 6 leads: each chunk runs V's loop.  W,
+    the PCA EnKF at ``pca_enkf_256``: each nowcast cycle samples the
+    velocity twice and warps the members (K1), a cycle that takes the NWP
+    ensemble as it is launches nothing.  X, linear and salient blending of
+    the 512^2 extrapolation nowcast (path I's launches) with the bench's
+    NWP stack in rain rate.  Every path's skill files go to a temporary
+    directory."""
+    common = {"device": name, "nvidia_smi": smi}
+    by_path = {}
+    T = N_LEADS
+    with tempfile.TemporaryDirectory() as skill_dir:
+        rec, out = _blend_path("V", SIDE, T, BLEND_MEMBERS, skill_dir, {
+            "resample_axis0": 3 * T, "resample_axis1": 3 * T, "rim_from_mask": 1 + T})
+        del out
+        side, E, Tp = BLEND_PARITY
+        db, nwp, velocity = blend_inputs(side)
+        det = _blend_kw(E, skill_dir, noise_method=None, resample_distribution=False)
+        rec["card_vs_cpu"] = blend_checks.steps_card_vs_cpu("V card vs CPU", db, nwp, velocity,
+                                                            Tp, det)
+        by_path["V"] = rec["launches"]
+        emit({"phase": "path V", "method": "blending.steps", "shape":
+              [BLEND_MEMBERS, T, SIDE, SIDE], **rec, **common})
+
+        Tc, chunks = BLEND_CHUNK_LEADS, BLEND_MEMBERS // BLEND_CHUNK
+        rec, out = _blend_path("V'", BLEND_CHUNK_SIDE, Tc, BLEND_MEMBERS, skill_dir, {
+            "resample_axis0": 3 * Tc * chunks, "resample_axis1": 3 * Tc * chunks,
+            "rim_from_mask": 1 + Tc * chunks}, member_chunk=BLEND_CHUNK,
+            output_dtype="bfloat16")
+        if out.dtype != torch.bfloat16:
+            raise AssertionError(f"V': output dtype {out.dtype}")
+        del out
+        rec["chunk_check"] = blend_checks.chunk_check("V' chunks", db, nwp, velocity, Tp, det)
+        by_path["V'"] = rec["launches"]
+        emit({"phase": "path V'", "method": "blending.steps", "shape":
+              [BLEND_MEMBERS, Tc, BLEND_CHUNK_SIDE, BLEND_CHUNK_SIDE],
+              "member_chunk": BLEND_CHUNK, "output_dtype": "bfloat16", **rec, **common})
+
+    # W: the PCA EnKF through its nowcaster class (what the registry's
+    # forecast builds), whose full-NWP leads fix the launch count
+    dev = torch.device("cuda")
+    obs, obs_ts, nwp, nwp_ts, velocity, t0 = _enkf_inputs(dev)
+    cfg = pca_enkf_mod.EnKFCombinationConfig(
+        n_ens_members=ENKF_MEMBERS, n_cascade_levels=ENKF_LEVELS, precip_threshold=-10.0,
+        norain_threshold=0.01, seed=43)
+
+    def caster():
+        return pca_enkf_mod.EnKFCombinationNowcaster(
+            obs, nwp, velocity, 5 * T, enkf_combination_config=cfg, obs_timestamps=obs_ts,
+            nwp_timestamps=nwp_ts, issuetime=t0, measure_time=True)
+
+    blending.get_method("pca_enkf")(obs, obs_ts, nwp, nwp_ts, velocity, 5 * T, issuetime=t0,
+                                    n_ens_members=ENKF_MEMBERS, n_cascade_levels=ENKF_LEVELS,
+                                    precip_thr=-10.0, norain_thr=0.01, seed=42)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = caster()
+    _kernels.reset_launches()
+    t_start = time.time()
+    out, init_s, loop_s = run.compute_forecast()
+    torch.cuda.synchronize()
+    wall = time.time() - t_start
+    launches = dict(_kernels.LAUNCHES)
+    if run.full_nwp_leads != ENKF_FULL_NWP_LEADS:
+        raise AssertionError(f"W: the full NWP at {run.full_nwp_leads} min, not at "
+                             f"{ENKF_FULL_NWP_LEADS}")
+    cycles = T - len(ENKF_FULL_NWP_LEADS)
+    _check_launches("W", launches, {"resample_axis0": 3 * cycles, "resample_axis1": 3 * cycles})
+    if tuple(out.shape) != (ENKF_MEMBERS, T + 1, ENKF_SIDE, ENKF_SIDE) or torch.isinf(out).any():
+        raise AssertionError(f"W: output {tuple(out.shape)} or infinite values")
+    rec = {"wall_s": wall, "init_s": init_s, "loop_s": loop_s,
+           "member_frames_per_s": ENKF_MEMBERS * T / wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "launches": launches,
+           "nowcast_cycles": cycles, "full_nwp_leads": run.full_nwp_leads,
+           "spread_per_lead": _spread(out[:, 1:], T),
+           "max_disp": pca_enkf_mod._max_disp(dev, (ENKF_SIDE, ENKF_SIDE))}
+    del out, run
+    # one cycle at the bench's size: the NWP ensemble at its first lead as
+    # the background, its second as the observation, a pool of 30 noise
+    # cascades
+    rec["card_vs_cpu"] = blend_checks.enkf_card_vs_cpu("W cycle card vs CPU", nwp.cpu(),
+                                                       velocity, ENKF_LEVELS, 30)
+    by_path["W"] = launches
+    emit({"phase": "path W", "method": "blending.pca_enkf",
+          "shape": [ENKF_MEMBERS, T + 1, ENKF_SIDE, ENKF_SIDE], **rec, **common})
+    del nwp
+
+    # X: linear and salient blending over the extrapolation nowcast
+    db, nwp, velocity = blend_inputs(SIDE)
+    meta = {"transform": "dB", "unit": "mm/h", "threshold": -10.0, "zerovalue": -15.0}
+    rr_nwp = (10.0 ** (nwp[0, 1:] / 10.0)).astype(np.float32)
+    launches_x = {}
+    for method in ("linear_blending", "salient_blending"):
+        f = blending.get_method(method)
+        args = (torch.as_tensor(db[-1], device=dev), meta, torch.as_tensor(velocity, device=dev),
+                T, 5.0, "extrapolation")
+        kw = dict(precip_nwp=torch.as_tensor(rr_nwp, device=dev),
+                  start_blending=LINEAR_RAMP[0], end_blending=LINEAR_RAMP[1])
+        out, rec = _timed_nowcast(f"X {method}", f, args, kw,
+                                  {"resample_axis0": 3 * T, "resample_axis1": 3 * T}, T)
+        if tuple(out.shape) != (T, SIDE, SIDE) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"X {method}: output {tuple(out.shape)} or non-finite")
+        ref = f(db[-1], meta, velocity, T, 5.0, "extrapolation", precip_nwp=rr_nwp,
+                start_blending=LINEAR_RAMP[0], end_blending=LINEAR_RAMP[1], device="cpu")
+        if method == "linear_blending":
+            held = _nanclose(f"X {method}", out, ref, 1e-4)
+        else:
+            # the saliency ranks the two fields' difference densely: values
+            # within rounding of each other may take neighbouring ranks
+            held = _nanclose(f"X {method}", out, ref, 1e-4, frac=0.999, mean_rel=1e-5,
+                             max_rel=1e-2)
+        launches_x[method] = rec["launches"]
+        emit({"phase": "path X", "method": method, "shape": list(out.shape),
+              "blend_ramp_min": list(LINEAR_RAMP), **rec, "card_vs_cpu": held, **common})
+    if launches_x["linear_blending"] != launches_x["salient_blending"]:
+        raise AssertionError(f"X: the two methods launched differently: {launches_x}")
+    by_path["X"] = launches_x["linear_blending"]
+    return by_path
+
+
+
 def _leaves(x):
     if isinstance(x, dict):
         return [v for k in sorted(x) for v in _leaves(x[k])]
@@ -2072,6 +2362,7 @@ def main():
     phase_postprocessing(name, smi, captured["forecast_last_lead"])
     phase_verification(name, smi, captured["forecast_last_lead"])
     by_path.update(phase_linda(name, smi))
+    by_path.update(phase_blending(name, smi))
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

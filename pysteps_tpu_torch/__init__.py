@@ -15,7 +15,9 @@ tensors.
 """
 
 from pysteps_tpu_torch import (  # noqa: F401
+    blending,
     cascade,
+    config,
     extrapolation,
     feature,
     motion,

@@ -121,7 +121,10 @@ def _proesmans_full(im1, im2, lam, num_levels, num_iter, filter_std, use_shift, 
     finite = torch.where(torch.isnan(R), float("inf"), R)
     lo = finite.amin()
     hi = torch.where(torch.isnan(R), float("-inf"), R).amax()
-    R = torch.nan_to_num((R - lo) * (255.0 / torch.clamp(hi - lo, min=1e-9)))
+    # a tensor divisor: ``255.0 / t`` is ``t.reciprocal() * 255`` in
+    # PyTorch, two roundings where the JAX package divides once
+    scale = torch.full_like(lo, 255.0) / torch.clamp(hi - lo, min=1e-9)
+    R = torch.nan_to_num((R - lo) * scale)
 
     pyr = [R]
     for _ in range(num_levels - 1):

@@ -20,8 +20,9 @@ _VALUE_BITS_MIN = 12
 
 def _match_cdf_presorted(initial, ranked, zvalue_trg, exact=False):
     """Match each member of ``initial`` (B, ...) to the sorted target
-    ``ranked`` (N,): rank-conserving value transfer, wet-area-ratio
-    adjustment, dry-pixel override.
+    ``ranked`` (N,) with minimum ``zvalue_trg``, or each to its own target,
+    ``ranked`` (B, N) and ``zvalue_trg`` (B,): rank-conserving value
+    transfer, wet-area-ratio adjustment, dry-pixel override.
 
     ``exact``: two stable sorts, output values a permutation of the
     (adjusted) target.  Otherwise, when the value bits allow, each sort is
@@ -36,15 +37,17 @@ def _match_cdf_presorted(initial, ranked, zvalue_trg, exact=False):
     idxzeros = init == zvalue[:, None]
 
     # wet-area-ratio adjustment of the target, per member
+    ranked = ranked.reshape(-1, size)  # (1 or B, N)
+    zvalue_trg = torch.as_tensor(zvalue_trg, device=ranked.device).reshape(-1, 1)
     n_wet_init = (init > zvalue[:, None]).sum(dim=1)
-    n_wet_trg = (ranked > zvalue_trg).sum()
+    n_wet_trg = (ranked > zvalue_trg).sum(dim=1)
     war = n_wet_init.to(torch.float32) / float(size)
     p_idx = torch.clamp(
         torch.round((1.0 - war) * (size - 1)).to(torch.int32), 0, size - 1
     )
-    p = ranked[p_idx.long()]
-    adjust = (n_wet_trg > n_wet_init)[:, None] & (ranked[None, :] < p[:, None])
-    ranked_b = torch.where(adjust, zvalue_trg, ranked[None, :])
+    p = torch.gather(ranked.expand(B, size), 1, p_idx.long()[:, None])
+    adjust = (n_wet_trg > n_wet_init)[:, None] & (ranked < p)
+    ranked_b = torch.where(adjust, zvalue_trg, ranked)
 
     index_bits = max(int(size - 1).bit_length(), 1)
     value_bits = 32 - index_bits

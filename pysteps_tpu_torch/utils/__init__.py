@@ -5,6 +5,7 @@ from pysteps_tpu_torch.utils import (  # noqa: F401
     conversion,
     images,
     interpolate,
+    pca,
     spectral,
     tapering,
     transformation,

@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
-                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R|T|U]
+                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R|T|U|V|W]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
@@ -15,7 +15,10 @@ N-R at 512^2, LK with the 12-lead extrapolation of its flow, VET,
 Proesmans, DARTS or Farneback, for which retrievals/s stands in, or
 frames/s for N; ``--path T`` or ``U``: LINDA at 512^2 with 12 leads on
 the bench's numpy rain-rate frames, T deterministic with the domain as
-one feature (frames/s), U with blob features, 10 members and BPS), once
+one feature (frames/s), U with blob features, 10 members and BPS;
+``--path V``: STEPS blending at the bench's ``blend_512``, 96 members x
+512^2 x 12 leads; ``--path W``: the PCA EnKF at ``pca_enkf_256``, 24
+members x 256^2 over 12 leads, with its NWP ensemble on the card), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
@@ -41,6 +44,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,10 +54,11 @@ import torch  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    BENCH_KWARGS, LINDA_PATHS, MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE,
-    _linda_inputs, bench_inputs, nowcast_path, takes_measure_time,
+    BENCH_KWARGS, BLEND_MEMBERS, ENKF_LEVELS, ENKF_MEMBERS, ENKF_SIDE, LINDA_PATHS,
+    MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, _blend_kw, _enkf_inputs,
+    _linda_inputs, bench_inputs, blend_inputs, nowcast_path, takes_measure_time,
 )
-from pysteps_tpu_torch import motion, nowcasts  # noqa: E402
+from pysteps_tpu_torch import blending, motion, nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
 from pysteps_tpu_torch.ops import _kernels  # noqa: E402
 
@@ -88,14 +93,16 @@ def main():
                     help="run the unfused K3 -> K4 -> K2 path in place of the chain")
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
-    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS, *LINDA_PATHS],
+    ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS, *LINDA_PATHS,
+                                       "V", "W"],
                     default="A", help="chip_smoke.py's path to run (F, G, H: the other noise "
                     "generators; I-M: the other nowcasts; N-R: the motion solvers; T, U: "
-                    "LINDA)")
+                    "LINDA; V: STEPS blending; W: the PCA EnKF)")
     args = ap.parse_args()
     moving = args.path in MOTION_PATHS
     linda = args.path in LINDA_PATHS
-    nowcast = args.path in "IJKLM" or moving or linda
+    blend = args.path in ("V", "W")
+    nowcast = args.path in "IJKLM" or moving or linda or blend
     if nowcast and (args.no_chain or args.shapes):
         raise SystemExit("profile_torch_steps: --no-chain and --shapes are STEPS' options")
     E, side, T, extra_kw = (
@@ -127,6 +134,33 @@ def main():
                 out = nowcasts.get_method("extrapolation")(x[-1], out, N_LEADS)
             torch.cuda.synchronize()
             return time.time() - t0, None, None, out
+    elif args.path == "V":
+        db, nwp, velocity = blend_inputs(SIDE)
+        b_args = tuple(torch.as_tensor(x, device=dev) for x in (db, nwp, velocity, velocity[None]))
+        f = blending.get_method("steps")
+        f_kw = dict(_blend_kw(BLEND_MEMBERS, tempfile.mkdtemp()), measure_time=True)
+        E, side = BLEND_MEMBERS, SIDE
+        out_shape = (E, T, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out, init_s, loop_s = f(*b_args, T, 5.0, **dict(f_kw, seed=seed))
+            torch.cuda.synchronize()
+            return time.time() - t0, init_s, loop_s, out
+    elif args.path == "W":
+        obs, obs_ts, nwp, nwp_ts, velocity, t_issue = _enkf_inputs(dev)
+        f = blending.get_method("pca_enkf")
+        E, side = ENKF_MEMBERS, ENKF_SIDE
+        out_shape = (E, T + 1, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out, init_s, loop_s = f(obs, obs_ts, nwp, nwp_ts, velocity, 5 * T,
+                                    issuetime=t_issue, n_ens_members=E,
+                                    n_cascade_levels=ENKF_LEVELS, precip_thr=-10.0,
+                                    norain_thr=0.01, seed=seed, measure_time=True)
+            torch.cuda.synchronize()
+            return time.time() - t0, init_s, loop_s, out
     elif linda:
         rain, velocity = _linda_inputs()
         f = nowcasts.get_method("linda")

@@ -1,0 +1,331 @@
+"""STEPS blending in the PyTorch port against the JAX package on the CPU
+(``pysteps_tpu_torch/blending/steps.py`` against
+``pysteps_tpu/blending/steps.py``), 64^2, 3 members, 3 leads, 6 levels.
+
+- ``_blending_scan`` on JAX's init carried over by ``params_from_numpy``,
+  on both branches: the exact gather (the CPU's path) and the shift path
+  (``extrap_kwargs["max_disp"]``: JAX's CPU run takes ``_axis_resample``,
+  the port the plain versions of K1 and K4, the card's kernels' CPU
+  versions); also with noise and the resampled CDF target, on JAX's
+  per-member draws handed over.
+- ``forecast`` end to end on deterministic configurations (no noise, no
+  resampling of the target), value by value with identical NaN sets,
+  over the branches of ``tests/test_blending.py``.
+
+Without a CDF match the outputs are held within 1e-5 x span at every
+pixel.  The loop ends in the exact CDF match (two stable sorts), which
+hands each pixel the target quantile of its rank: where two pixels'
+values are within rounding of each other their ranks may swap, and each
+takes its neighbour's quantile (42 of 36864 pixels, up to 1.4e-3 x span,
+with a time-varying velocity whose unmatched fields agree within 1.9e-6
+x span).  So a matched output is held on its sorted values (the
+distribution, within 1e-5 x span), at 99.8% of its pixels within 1e-4 x
+span, on average within 1e-5 x span, and everywhere within 1e-2 x span.
+The stochastic configurations are held by CRPS in
+``tests/test_torch_blending_crps.py``."""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from helpers import make_synthetic_sequence
+from pysteps_tpu import blending as jblending
+from pysteps_tpu import nowcasts as jnowcasts
+from pysteps_tpu.blending import steps as jsteps
+from pysteps_tpu.noise import fftgenerators as jfft
+from pysteps_tpu_torch import blending as tblending
+from pysteps_tpu_torch.blending import steps as tsteps
+from pysteps_tpu_torch.noise import fftgenerators as tfft
+from pysteps_tpu_torch.postprocessing import probmatching as tprob
+
+SIDE, E, T = 64, 3, 3
+DET = dict(n_ens_members=E, n_cascade_levels=6, precip_thr=-10.0, kmperpixel=1.0, seed=42,
+           noise_method=None, resample_distribution=False)
+PLAIN_TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def data():
+    frames = make_synthetic_sequence(n_frames=9, shape=(SIDE, SIDE), velocity=(2.0, 1.0),
+                                     seed=1)
+    db = np.where(frames >= 0.1, 10 * np.log10(np.maximum(frames, 0.1)), -15.0)
+    db = db.astype(np.float32)
+    velocity = np.zeros((2, SIDE, SIDE), np.float32)
+    velocity[0], velocity[1] = 2.0, 1.0
+    nwp = (db[2:9] + 0.5 * np.random.RandomState(7).randn(7, SIDE, SIDE)).astype(np.float32)
+    return db, velocity, nwp
+
+
+@pytest.fixture(scope="module")
+def skill_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("skill"))
+
+
+def _held(out, ref, matched=True):
+    """``out`` against ``ref`` (E, T, m, n): identical NaN sets, and the
+    tolerances of the module docstring (``matched``: a CDF-matched
+    output)."""
+    out = np.asarray(out, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert out.shape == ref.shape
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    span = np.nanmax(ref) - np.nanmin(ref)
+    if span == 0:  # a constant forecast (the incremental mask of a dry radar)
+        np.testing.assert_array_equal(out, ref)
+        return
+    diff = np.nan_to_num(np.abs(out - ref)) / span
+    if not matched:
+        assert diff.max() <= PLAIN_TOL, diff.max()
+        return
+    flat = lambda x: np.sort(np.nan_to_num(x, nan=-np.inf).reshape(x.shape[:2] + (-1,)), axis=-1)
+    sorted_diff = np.nan_to_num(np.abs(flat(out) - flat(ref)), nan=0.0) / span
+    assert sorted_diff.max() <= PLAIN_TOL, sorted_diff.max()
+    assert np.mean(diff <= 1e-4) >= 0.998, np.mean(diff <= 1e-4)
+    assert diff.mean() <= PLAIN_TOL and diff.max() <= 1e-2, (diff.mean(), diff.max())
+
+
+def _capture(monkeypatch):
+    """Record the arguments of the JAX forecast's ``_blending_scan``."""
+    rec = {}
+    orig = jsteps._blending_scan
+    sig = inspect.signature(orig)
+
+    def recording(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        rec.update(bound.arguments)
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(jsteps, "_blending_scan", recording)
+    return rec
+
+
+def _port_scan(rec, **kw):
+    arrays = {k: np.asarray(v) for k, v in rec.items()
+              if isinstance(v, (np.ndarray, jax.Array))}
+    params, state = tsteps.params_from_numpy(arrays, "cpu", seed=0)
+    return tsteps._blending_scan(
+        params, state, rec["int_steps"], mask_method=rec["mask_method"],
+        probmatching_method=rec["probmatching"],
+        resample_distribution=rec["resample_distribution"], mask_rim=rec["mask_rim"],
+        struct_radius=rec["struct_radius"], precip_thr=float(rec["precip_thr"]),
+        max_disp=rec["max_disp"], vel_pert=rec["vel_pert"], p_par=rec["p_par"],
+        p_perp=rec["p_perp"], vsf=float(rec["vsf"]), timestep_min=float(rec["timestep_min"]),
+        use_noise=rec["use_noise"], **kw)
+
+
+@pytest.mark.parametrize("branch", ["gather", "shift"])
+def test_scan_from_jax_init(data, skill_dir, branch, monkeypatch):
+    db, velocity, nwp = data
+    rec = _capture(monkeypatch)
+    extra = {"extrap_kwargs": {"max_disp": 12}} if branch == "shift" else {}
+    ref = np.asarray(jblending.get_method("steps")(
+        db[:3], nwp[None], velocity, velocity[None], T, 5, outdir_path_skill=skill_dir,
+        **DET, **extra))
+    assert rec["max_disp"] == (12 if branch == "shift" else None)
+    out = _port_scan(rec)
+    _held(out.numpy(), ref)
+
+
+def _jax_draws(rec, m, n):
+    """JAX's per-lead spectral white noise (E, m, n//2+1) and Bernoulli picks
+    (E, m*n) of the resampled target, from the forecast's member keys."""
+    keys = list(rec["member_keys"])
+    w = np.asarray(rec["weights_t"])
+    mm = np.asarray(rec["member_model"])
+    whites, picks = [], []
+    for t in range(rec["int_steps"]):
+        split = [jax.random.split(k) for k in keys]
+        keys = [s[0] for s in split]
+        whites.append(np.stack([np.asarray(jfft._spectral_white(s[1], (m, n))) for s in split]))
+        pk = []
+        for j, k in enumerate(keys):
+            wj = jnp.asarray(w[t, mm[j]])
+            p_radar = jnp.sum(wj[0]) / jnp.maximum(jnp.sum(wj[0]) + jnp.sum(wj[1]), 1e-12)
+            pk.append(np.asarray(jax.random.bernoulli(jax.random.fold_in(k, t), p_radar,
+                                                      (m * n,))))
+        picks.append(np.stack(pk))
+    return whites, picks
+
+
+@pytest.mark.parametrize("adj", [None, "fixed"])
+def test_scan_with_noise_and_resampling_on_jax_draws(data, skill_dir, adj, monkeypatch):
+    db, velocity, nwp = data
+    rec = _capture(monkeypatch)
+    kw = dict(DET, noise_method="nonparametric", resample_distribution=True,
+              noise_stddev_adj=adj)
+    ref = np.asarray(jblending.get_method("steps")(
+        db[:3], nwp[None], velocity, velocity[None], T, 5, outdir_path_skill=skill_dir, **kw))
+    whites, picks = _jax_draws(rec, SIDE, SIDE)
+    it_w, it_p = iter(whites), iter(picks)
+    monkeypatch.setattr(tfft, "_spectral_white", lambda g, s, b: torch.from_numpy(next(it_w)))
+    monkeypatch.setattr(tprob, "_bernoulli", lambda g, p, shape: torch.from_numpy(next(it_p)))
+    out = _port_scan(rec)
+    _held(out.numpy(), ref)
+
+
+BRANCHES = {
+    "incremental_cdf": {},
+    "obs_mean": dict(mask_method="obs", probmatching_method="mean"),
+    "spn": dict(weights_method="spn"),
+    "no_mask_no_match": dict(mask_method=None, probmatching_method=None),
+    "end_weights": dict(timestep_start_full_nwp_weight=1),
+    "smooth_radar_mask": dict(smooth_radar_mask_range=12, domain_nan=True),
+    "conditional": dict(conditional=True),
+    "multimodel": dict(models=2),
+    "blend_nwp_members": dict(models=2, blend_nwp_members=True),
+    "time_varying_velocity": dict(vel_t=True),
+    "time_varying_velocity_unmatched": dict(vel_t=True, probmatching_method=None),
+    "static_nwp": dict(static_nwp=True),
+    "shift_path": dict(extrap_kwargs={"max_disp": 12}),
+}
+
+
+def _branch_inputs(data, kw):
+    db, velocity, nwp = data
+    kw = dict(kw)
+    precip = db[:3].copy()
+    nwp_in, vel_in = nwp[None], velocity[None]
+    models = kw.pop("models", 1)
+    if models == 2:
+        rng = np.random.RandomState(3)
+        nwp_in = np.stack([nwp, nwp + 0.3 * rng.randn(*nwp.shape).astype(np.float32)])
+        vel_in = np.stack([velocity, 0.8 * velocity])
+    if kw.pop("vel_t", False):
+        vel_in = np.stack([velocity * (1 + 0.05 * t) for t in range(T + 1)])[None]
+    if kw.pop("static_nwp", False):
+        nwp_in = nwp_in[:, 0]
+    if kw.pop("domain_nan", False):
+        precip[:, :, :6] = np.nan
+    return precip, nwp_in, vel_in, kw
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_forecast_deterministic(data, skill_dir, branch):
+    precip, nwp_in, vel_in, kw = _branch_inputs(data, BRANCHES[branch])
+    args = (precip, nwp_in, data[1], vel_in, T, 5)
+    kw = dict(DET, outdir_path_skill=skill_dir, **kw)
+    ref = np.asarray(jblending.get_method("steps")(*args, **kw))
+    out = tblending.get_method("steps")(*args, device="cpu", **kw)
+    assert out.device.type == "cpu" and out.dtype == torch.float32
+    _held(out.numpy(), ref, matched=kw.get("probmatching_method", "cdf") == "cdf")
+
+
+def test_forecast_external_nowcast(data, skill_dir):
+    db, velocity, nwp = data
+    external = np.asarray(jnowcasts.get_method("steps")(
+        db[:3], velocity, T, n_ens_members=E, precip_thr=-10.0, kmperpixel=1.0, timestep=5,
+        seed=3))
+    kw = dict(DET, outdir_path_skill=skill_dir, precip_nowcast=external,
+              nowcasting_method="external_nowcast")
+    args = (db[:3], nwp[None], velocity, velocity[None], T, 5)
+    ref = np.asarray(jblending.get_method("steps")(*args, **kw))
+    out = tblending.get_method("steps")(*args, device="cpu", **kw)
+    _held(out.numpy(), ref)
+    with pytest.raises(ValueError):
+        tblending.get_method("steps")(*args, device="cpu", **dict(kw, precip_nowcast=external[:2]))
+
+
+@pytest.mark.parametrize("which", ["radar", "nwp", "both"])
+def test_forecast_zero_inputs(data, skill_dir, which):
+    db, velocity, nwp = data
+    precip = np.full_like(db[:3], -15.0) if which in ("radar", "both") else db[:3]
+    nwp_in = np.full_like(nwp, -15.0) if which in ("nwp", "both") else nwp
+    args = (precip, nwp_in[None], velocity, velocity[None], 2, 5)
+    kw = dict(DET, outdir_path_skill=skill_dir)
+    ref = np.asarray(jblending.get_method("steps")(*args, **kw))
+    out = tblending.get_method("steps")(*args, device="cpu", **kw)
+    _held(out.numpy(), ref)
+    if which == "both":
+        assert np.all(out.numpy() == -15.0)
+
+
+def test_argument_errors_and_mesh(data):
+    db, velocity, nwp = data
+    args = (db[:3], nwp[None], velocity, velocity[None], T, 5)
+    for bad in (dict(nowcasting_method="x"), dict(nowcasting_method="external_nowcast"),
+                dict(timestep_start_full_nwp_weight=-1), dict(timestep_start_full_nwp_weight=T),
+                dict(precip_thr=None), dict(weights_method="nope")):
+        kw = dict(DET, **bad)
+        with pytest.raises(ValueError):
+            jblending.get_method("steps")(*args, **kw)
+        with pytest.raises(ValueError):
+            tblending.get_method("steps")(*args, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        tblending.get_method("steps")(*args, device="cpu", mesh=object(), **DET)
+
+
+STOCH = dict(n_ens_members=4, n_cascade_levels=6, precip_thr=-10.0, kmperpixel=1.0,
+             seed=5, noise_method="nonparametric", resample_distribution=True)
+
+
+def _plain(data, skill_dir, **kw):
+    db, velocity, nwp = data
+    return tblending.get_method("steps")(
+        db[:3], nwp[None], velocity, velocity[None], kw.pop("timesteps", 4), 5,
+        device="cpu", outdir_path_skill=skill_dir, **dict(STOCH, **kw))
+
+
+def test_streaming_callback_matches_the_plain_call(data, skill_dir):
+    frames = []
+    res = _plain(data, skill_dir, callback=frames.append, return_output=False)
+    full = _plain(data, skill_dir).numpy()
+    assert res is None and len(frames) == 4
+    assert all(isinstance(f, np.ndarray) and f.shape == (4, SIDE, SIDE) for f in frames)
+    np.testing.assert_array_equal(np.stack(frames, axis=1), full)
+    frames2 = []
+    out = _plain(data, skill_dir, callback=frames2.append)
+    np.testing.assert_array_equal(np.stack(frames2, axis=1), out.numpy())
+
+
+def test_member_chunk_matches_the_plain_call(data, skill_dir):
+    det = dict(noise_method=None, resample_distribution=False)
+    full = _plain(data, skill_dir, **det).numpy()
+    chunked = _plain(data, skill_dir, member_chunk=2, **det).numpy()
+    np.testing.assert_allclose(chunked, full, atol=1e-6 * (full.max() - full.min()))
+    # with noise the chunked run draws each chunk's leads in turn: another
+    # stream of the same law, members that spread
+    noisy = _plain(data, skill_dir, member_chunk=2)
+    assert float(noisy.std(dim=0).mean()) > 0
+
+
+def test_bfloat16_output_is_the_float32_output_rounded(data, skill_dir):
+    full = _plain(data, skill_dir)
+    half = _plain(data, skill_dir, output_dtype="bfloat16")
+    assert half.dtype == torch.bfloat16
+    np.testing.assert_array_equal(half.float().numpy(), full.to(torch.bfloat16).float().numpy())
+
+
+def test_list_timesteps_interpolate_the_plain_call(data, skill_dir):
+    full = _plain(data, skill_dir, timesteps=3).numpy()
+    sub = _plain(data, skill_dir, timesteps=[1, 2.5, 3]).numpy()
+    assert sub.shape == (4, 3, SIDE, SIDE)
+    np.testing.assert_array_equal(sub[:, 0], full[:, 0])
+    np.testing.assert_array_equal(sub[:, 2], full[:, 2])
+    np.testing.assert_allclose(sub[:, 1], 0.5 * full[:, 1] + 0.5 * full[:, 2], atol=1e-5)
+
+
+def test_measure_time_and_nowcaster_class(data, skill_dir):
+    db, velocity, nwp = data
+    out, init_s, loop_s = _plain(data, skill_dir, measure_time=True)
+    assert init_s >= 0 and loop_s >= 0
+    cfg = tsteps.StepsBlendingConfig(
+        precip_threshold=-10.0, kmperpixel=1.0, timestep=5, n_ens_members=4,
+        seed=5, outdir_path_skill=skill_dir)
+    caster = tsteps.StepsBlendingNowcaster(db[:3], nwp[None], velocity, velocity[None], 4,
+                                           steps_blending_config=cfg, device="cpu")
+    np.testing.assert_array_equal(caster.compute_forecast().numpy(), out.numpy())
+    assert [f.name for f in tsteps.StepsBlendingConfig.__dataclass_fields__.values()] == [
+        f.name for f in jsteps.StepsBlendingConfig.__dataclass_fields__.values()]

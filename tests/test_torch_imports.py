@@ -12,7 +12,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py and the checks it shares with the card tests
+PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_blending_checks.py"]
 
 
 def _forbidden(module):
@@ -123,7 +125,7 @@ def _numpy_entry_points():
         ("initialize_bps", lambda device: motion.initialize_bps(
             series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
     ] + (_numpy_nowcast_entry_points() + _numpy_motion_entry_points()
-         + _numpy_linda_feature_and_score_entry_points())
+         + _numpy_linda_feature_and_score_entry_points() + _numpy_blending_entry_points())
 
 
 def _numpy_nowcast_entry_points():
@@ -271,6 +273,49 @@ def _numpy_linda_feature_and_score_entry_points():
         ("fss", score(lambda device: spatialscores.fss(ens[1], obs, 1.0, 4, device=device))),
         ("binary_mse", score(lambda device: spatialscores.binary_mse(
             ens[1], obs, 1.0, device=device)[0])),
+    ]
+
+
+def _numpy_blending_entry_points():
+    """The blending registry's methods, PCA and the blending helpers on
+    32^2 numpy inputs; host results are wrapped as tensors (the card call
+    raises before)."""
+    from pysteps_tpu_torch import blending
+    from pysteps_tpu_torch.blending import skill_scores, steps
+    from pysteps_tpu_torch.blending import utils as butils
+    from pysteps_tpu_torch.utils import pca
+
+    rng = np.random.default_rng(7)
+    rain = np.maximum(rng.gamma(0.8, 3.0, (3, 32, 32)) - 1.0, 0.0).astype(np.float32)
+    db = np.where(rain >= 0.1, 10.0 * np.log10(np.maximum(rain, 0.1)), -15.0).astype(np.float32)
+    vel = np.full((2, 32, 32), 0.7, np.float32)
+    nwp = (db[-1] + rng.normal(0, 0.5, (3, 32, 32))).astype(np.float32)
+    meta = {"transform": "dB", "unit": "mm/h", "threshold": -10.0, "zerovalue": -15.0}
+    skill = {"outdir_path_skill": str(ROOT / "build" / "skill_unused")}
+    return [
+        ("blending.steps", lambda device: blending.get_method("steps")(
+            db, nwp[None], vel, vel[None], 2, 5, n_ens_members=2, n_cascade_levels=4,
+            precip_thr=-10.0, kmperpixel=1.0, device=device, **skill)),
+        ("blending.linear_blending", lambda device: blending.get_method("linear_blending")(
+            db[-1], meta, vel, 2, 5, "extrapolation", precip_nwp=10 ** (nwp[:2] / 10),
+            start_blending=0, end_blending=15, device=device)),
+        ("blending.salient_blending", lambda device: blending.get_method("salient_blending")(
+            db[-1], meta, vel, 2, 5, "extrapolation", precip_nwp=10 ** (nwp[:2] / 10),
+            start_blending=0, end_blending=15, device=device)),
+        ("blending.pca_enkf", lambda device: blending.get_method("pca_enkf")(
+            db[-2:], None, np.stack([nwp, nwp + 0.1]), None, vel, 2, n_ens_members=2,
+            n_cascade_levels=4, device=device)),
+        ("spatial_correlation", lambda device: torch.as_tensor(
+            skill_scores.spatial_correlation(db, nwp, np.zeros((32, 32), bool),
+                                             device=device))),
+        ("blend_means_sigmas", lambda device: steps.blend_means_sigmas(
+            [[1.0], [2.0]], [[1.0], [1.5]], [[0.5], [0.5], [0.1]], device=device)[0]),
+        ("pca_transform", lambda device: pca.pca_transform(
+            db.reshape(3, -1), device=device)),
+        ("decompose_NWP", lambda device: torch.as_tensor(butils.decompose_NWP(
+            nwp, "m", num_cascade_levels=4, device=device)["means"])),
+        ("compute_smooth_dilated_mask", lambda device: butils.compute_smooth_dilated_mask(
+            db[-1] > 0, 4, device=device)),
     ]
 
 
