@@ -119,6 +119,27 @@ Phases, each printing JSON lines:
    chunk and its bfloat16 output the float32 one rounded, one EnKF
    correction and nowcast step from one state, X's two methods; skill
    files go to a temporary directory;
+20. paths Y, Y', A-ens and Z and the distributed verification, on a
+   1 x 1 x 1 mesh of an NCCL process group that the script starts itself
+   (rank 0 of 1; no other backend stands in) and destroys before its last
+   line: Y ``parallel.sharded_steps.forecast`` at 96 members x 512^2 x 12
+   leads with 8 levels and BPS on the bench's inputs, Y' the same at the
+   CONUS grid of the JAX dry run (2048^2, 2 members, 3 levels, 1 lead),
+   each timed once after a warm-up with its exact K1 and K4-from-a-mask
+   launches, and each warm-up's K1 launches on the halo-extended members
+   and K4 launch on the mask held against the plain versions at those
+   shapes; Y's components at its shapes on its last lead's inputs card
+   against CPU (the pencil FFT, the halo warp and ``sharded_warp``, the
+   psum matcher, the rim mask) and the whole forecast in law against a
+   CPU run at 16 x 128^2 x 6 (a spawned gloo rank); A-ens STEPS' ``mesh=``
+   at path A's size as each of 2 "ens" ranks in turn, with each rank's
+   launches from the code and the blocks within 3e-2 dB of the unsharded
+   forecast (cuFFT rounds a block's batch otherwise); Z RainFARM's
+   ``downscale_ensemble`` of the bench's 128^2 coarse field into 24
+   realizations of 512^2 with no kernel launched, each realization's
+   aggregate against the input and the core card against CPU on the same
+   white draws; ``distributed_verify`` over path A's last lead against
+   the verification phase's serial scores;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -169,6 +190,7 @@ from pysteps_tpu_torch.postprocessing.probmatching import _prepare_cdf_target  #
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 import torch_blending_checks as blend_checks  # noqa: E402
+import torch_parallel_workers as parallel_workers  # noqa: E402
 from helpers import make_synthetic_sequence  # noqa: E402
 from torch_blending_checks import nanclose as _nanclose  # noqa: E402
 
@@ -2337,6 +2359,396 @@ def phase_blending(name, smi):
 
 
 
+# the sharded paths of parallel/ and RainFARM, on a 1 x 1 x 1 NCCL mesh of
+# this process (one card): Y the y-sharded STEPS at the headline size with
+# the bench's inputs (bench.py:105-138), Y' the CONUS grid of the JAX
+# package's dry run (__graft_entry__.py:182-196), Z the bench's
+# rainfarm_512 (bench.py:88, :345-354): (members, side, leads[, levels])
+PATH_Y = (N_MEMBERS, SIDE, N_LEADS)
+PATH_Y2 = (2, 2048, 1, 3)
+SHARDED_KWARGS = dict(n_cascade_levels=8, precip_thr=-10.0, kmperpixel=1.0, timestep=5,
+                      seed=42, vel_pert_method="bps")
+RAINFARM_512 = (4, 24)  # factor of the 128^2 coarse field, realizations
+SHARDED_SPAN_TOL = 1e-5  # card against CPU, of the inputs' largest magnitude
+# STEPS' ens-sharded blocks against the unsharded forecast, dB
+# (tests/test_parallel.py:46-48)
+ENS_BLOCK_ATOL = 3e-2
+PARALLEL_LAW_TOL = 0.1  # MODEL_PARITY.json's tol_rel for the law check
+RAINFARM_CORE_TOL = 1e-4
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_mesh():
+    """A 1 x 1 x 1 mesh on an NCCL process group of this process alone
+    (rank 0 of 1, a free local port).  Fails where NCCL cannot start: no
+    other backend stands in."""
+    import torch.distributed as dist
+
+    from pysteps_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    mesh = make_mesh(ens=1, y=1, x=1, device_type="cuda")
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"the mesh runs on {dist.get_backend()}, not nccl")
+    return mesh
+
+
+class _ShardedCapture:
+    """Keeps the last call's arguments of sharded_steps' matcher, mask and
+    warp while a forecast runs, and the time of the first noise draw (the
+    loop's start, after a synchronization)."""
+
+    NAMES = ("_match_cdf_psum", "_dilated_mask_from_ext", "_warp_from_ext", "_spectral_white")
+
+    def __enter__(self):
+        from pysteps_tpu_torch.parallel import sharded_steps
+
+        self.mod, self.args, self.loop_t0 = sharded_steps, {}, None
+        self.orig = {n: getattr(sharded_steps, n) for n in self.NAMES}
+
+        def wrap(n, f):
+            def call(*args):
+                if n == "_spectral_white" and self.loop_t0 is None:
+                    torch.cuda.synchronize()
+                    self.loop_t0 = time.time()
+                self.args[n] = args
+                return f(*args)
+            return call
+
+        for n, f in self.orig.items():
+            setattr(sharded_steps, n, wrap(n, f))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.orig.items():
+            setattr(self.mod, n, f)
+
+
+def _span_check(label, card, cpu, tol, scale=None):
+    """max |card - cpu| within ``tol`` of ``scale`` (default: max |cpu|)."""
+    wide = torch.complex128 if cpu.is_complex() else torch.float64
+    card, cpu = card.detach().cpu().to(wide), cpu.detach().cpu().to(wide)
+    if card.shape != cpu.shape or not torch.equal(torch.isnan(card), torch.isnan(cpu)):
+        raise AssertionError(f"{label}: shapes or NaN sets differ")
+    scale = float(cpu.abs().nan_to_num().max()) if scale is None else scale
+    diff = float((card - cpu).abs().nan_to_num().max())
+    if diff > tol * max(scale, 1e-30):
+        raise AssertionError(f"{label}: card and CPU differ by {diff} > {tol} x {scale}")
+    return {"max_abs_diff": diff, "of_scale": diff / max(scale, 1e-30), "tol": tol}
+
+
+def _sharded_components(cap, mesh):
+    """Y's components at Y's shapes on the last lead's inputs, card against
+    CPU: the pencil FFT against ``torch.fft``, the halo warp (the scan's
+    and the public ``sharded_warp``) against ``warp_shifted``'s plain
+    version, the psum matcher and the rim mask against themselves on the
+    CPU as one block (``mesh=None``)."""
+    from pysteps_tpu_torch.parallel import dist_fft, halo
+
+    field, tstate, size, _ = cap.args["_match_cdf_psum"]
+    m, n = field.shape[-2:]
+    out = {"shape": list(field.shape)}
+    spec = dist_fft.rfft2_local(field, mesh)
+    ref = torch.fft.rfft2(field.cpu())
+    out["rfft2_local"] = _span_check("Y rfft2_local", spec[..., : n // 2 + 1], ref,
+                                     SHARDED_SPAN_TOL)
+    out["irfft2_local"] = _span_check("Y irfft2_local", dist_fft.irfft2_local(spec, (m, n), mesh),
+                                      field.cpu(), SHARDED_SPAN_TOL)
+    cpu_t = tuple(t.cpu() for t in tstate)
+    span = float(tstate[0][-1] - tstate[0][0])
+    out["match_cdf_psum"] = _span_check(
+        "Y _match_cdf_psum", cap.orig["_match_cdf_psum"](field, tstate, size, mesh),
+        cap.orig["_match_cdf_psum"](field.cpu(), cpu_t, size, None), SHARDED_SPAN_TOL, span)
+    ext, h, thr, kr, r, _ = cap.args["_dilated_mask_from_ext"]
+    out["rim_mask"] = _span_check(
+        "Y rim mask", cap.orig["_dilated_mask_from_ext"](ext, h, thr, kr, r, mesh),
+        cap.orig["_dilated_mask_from_ext"](ext.cpu(), h, thr, kr, r, None), 1e-6)
+    ext, disp, h, precip_min, _ = cap.args["_warp_from_ext"]
+    warped = warp_mod.warp_shifted(ext.cpu(), halo._pad_rows(disp.cpu(), h), h, mode="nearest")
+    ref = torch.where(halo._inside(disp.cpu(), 0, m), warped[..., h:-h, :], precip_min)
+    scale = float(ext.abs().max())
+    out["warp_from_ext"] = _span_check(
+        "Y halo warp", cap.orig["_warp_from_ext"](ext, disp, h, precip_min, mesh), ref,
+        SHARDED_SPAN_TOL, scale)
+    # the public warp against the unsharded one: positions in the extended
+    # block round at its row numbers, so their fractions differ by up to
+    # an ulp of m + 2 halo, times the field's span
+    f0, d0 = ext[0, h:-h].contiguous(), disp[0].contiguous()
+    ulp = 2.0 ** (int(np.ceil(np.log2(m + 2 * h))) - 23)
+    out["sharded_warp"] = _span_check(
+        "Y sharded_warp", halo.sharded_warp(f0, d0, mesh, h),
+        warp_mod.warp_shifted(f0.cpu(), d0.cpu(), h, cval=0.0), ulp,
+        float(f0.max() - f0.min()))
+    out["halo"] = h
+    return out
+
+
+def _sharded_law(mesh):
+    """``sharded_steps`` at 16 x 128^2 x 6 on the card against the same
+    on a CPU mesh (a spawned gloo rank), by the MODEL_PARITY.json recipe:
+    CRPS and spread/error over the leads, 2 seeds."""
+    from pysteps_tpu_torch.parallel import sharded_steps
+
+    workers = parallel_workers
+    db, vel, truth = workers.law_inputs()
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu = workers.run_group(workers.law_cpu, tmp, world=1)[0]
+    card, cpu_s = [], []
+    for seed in workers.LAW_SEEDS:
+        out = sharded_steps.forecast(db, vel, 6, mesh, seed=seed, **workers.LAW_KW)
+        card.append(workers.law_scores(out.cpu().numpy(), truth))
+        cpu_s.append(workers.law_scores(cpu[f"law_{seed}"], truth))
+    (c_card, r_card), (c_cpu, r_cpu) = np.mean(card, axis=0), np.mean(cpu_s, axis=0)
+    rec = {"crps_card": c_card, "crps_cpu": c_cpu, "spread_error_card": r_card,
+           "spread_error_cpu": r_cpu, "tol_rel": PARALLEL_LAW_TOL,
+           "members_side_leads": [workers.LAW_KW["n_ens_members"], 128, 6]}
+    if abs(c_card - c_cpu) > PARALLEL_LAW_TOL * c_cpu or \
+            abs(r_card - r_cpu) > PARALLEL_LAW_TOL * r_cpu:
+        raise AssertionError(f"Y law: card and CPU differ: {rec}")
+    return rec
+
+
+def _sharded_path(label, mesh, E, side, T, inputs, kw, expected, name, smi):
+    """``sharded_steps.forecast`` once to warm up, keeping the last call's
+    inputs of its matcher, mask and warp (:class:`_ShardedCapture`) and of
+    each K1 and K4 launch, whose copies are held against the plain
+    versions on leaving (:class:`_PathKernelInputs`); then timed with the
+    launch counts set to 0 just before and read just after.  Raises
+    unless K1 ran on both axes on the halo-extended members (E, side +
+    2 halo, side) at the halo's bound and K4 on the (1, side, side) mask,
+    the counts are ``expected``, the output is finite with values in the
+    target's range and its members spread at every lead.  Returns (record,
+    capture)."""
+    from pysteps_tpu_torch.parallel import sharded_steps
+
+    precip_db, velocity = inputs
+    kernels = _PathKernelInputs(label)
+    with kernels, _ShardedCapture() as cap:
+        out = sharded_steps.forecast(precip_db, velocity, T, mesh, n_ens_members=E, **kw)
+        torch.cuda.synchronize()
+    del out
+    h = cap.args["_warp_from_ext"][2]
+    block = (E, side + 2 * h, side)
+    for axis in (0, 1):
+        if (axis, block, block, h) not in kernels.k1:
+            raise AssertionError(f"{label}: no K1 launch on axis {axis} at {block}, bound {h}: "
+                                 f"{sorted(kernels.k1)}")
+    if not any(key[0] == (1, side, side) for key in kernels.k4):
+        raise AssertionError(f"{label}: no K4 launch at (1, {side}, {side}): "
+                             f"{sorted(kernels.k4)}")
+    torch.cuda.reset_peak_memory_stats()
+    with _ShardedCapture() as timing:
+        _kernels.reset_launches()
+        t0 = time.time()
+        out = sharded_steps.forecast(precip_db, velocity, T, mesh, n_ens_members=E,
+                                     **dict(kw, seed=kw["seed"] + 1))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    init_s = timing.loop_t0 - t0
+    if tuple(out.shape) != (E, T, side, side) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: output {tuple(out.shape)} not finite of its shape")
+    # matched values lie in the last input's range, the inflow fill is the
+    # inputs' minimum
+    lo, hi = float(np.min(precip_db)), float(np.max(precip_db[-1]))
+    if float(out.min()) < lo - 1e-3 or float(out.max()) > hi + 1e-3:
+        raise AssertionError(f"{label}: values outside the inputs' range")
+    _check_launches(label, launches, expected)
+    spread = out.std(dim=0).reshape(T, -1).mean(dim=1).cpu().numpy()
+    if not bool((spread > 0).all()):
+        raise AssertionError(f"{label}: no ensemble spread at some lead: {spread.tolist()}")
+    rec = {"phase": f"path {label}", "shape": list(out.shape), "mesh": [1, 1, 1],
+           "backend": "nccl", "member_frames_per_s": E * T / wall, "wall_s": wall,
+           "init_s": init_s, "loop_s": wall - init_s, "max_memory_allocated": peak,
+           "spread_per_lead": spread.tolist(), "launches": launches,
+           "expected_launches": expected, "halo": h, "kernels_at_path_shapes": kernels.rows,
+           "device": name, "nvidia_smi": smi}
+    return rec, cap
+
+
+def _ens_blocks_path(mesh, name, smi):
+    """A-ens: STEPS' ``mesh=`` branch at path A's size with its members
+    over an "ens" dimension of 2 ranks, each rank's block run in turn on
+    the one card (``parallel_workers.as_ens_rank`` on the 1-rank NCCL
+    mesh), each timed with the launch counts set to 0 just before and read
+    just after.  Raises unless each block's counts are those of the code
+    (``parallel_workers.block_launches``: path A's) and the blocks put
+    together have the unsharded forecast's NaN set and its values within
+    ``ENS_BLOCK_ATOL``.  Not bit for bit: cuFFT's plans depend on the
+    batch, so a block's transforms round unlike the whole ensemble's, and
+    the CDF match hands that on (on the CPU the blocks are bit-equal:
+    tests/test_torch_parallel.py).  Returns block 0's counts."""
+    E, side, T = N_MEMBERS, SIDE, N_LEADS
+    precip_db, velocity = bench_inputs(side)
+    p = torch.as_tensor(precip_db, device="cuda")
+    v = torch.as_tensor(velocity, device="cuda")
+    f = nowcasts.get_method("steps")
+    kw = dict(BENCH_KWARGS, n_ens_members=E, seed=43)
+    whole = f(p, v, T, **kw)
+    blocks, recs = [], []
+    for block in ((0, E // 2), (E // 2, E)):
+        with parallel_workers.as_ens_rank(block):
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            t0 = time.time()
+            out = f(p, v, T, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+        expected = parallel_workers.block_launches(block, E, T)
+        _check_launches(f"A-ens block {block}", launches, expected)
+        if tuple(out.shape) != (block[1] - block[0], T, side, side):
+            raise AssertionError(f"A-ens block {block}: output {tuple(out.shape)}")
+        blocks.append(out)
+        recs.append({"block": list(block), "wall_s": wall,
+                     "member_frames_per_s": (block[1] - block[0]) * T / wall,
+                     "launches": launches, "expected_launches": expected})
+    joined = torch.cat(blocks)
+    diff = torch.nan_to_num(joined - whole).abs()
+    against = {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+               "bit_equal_share": float((diff == 0).float().mean()), "atol": ENS_BLOCK_ATOL}
+    if not torch.equal(torch.isnan(whole), torch.isnan(joined)) or \
+            against["max_abs_diff"] > ENS_BLOCK_ATOL:
+        raise AssertionError(f"A-ens: the blocks differ from the unsharded forecast: {against}")
+    emit({"phase": "path A-ens", "shape": list(joined.shape), "ens_ranks": 2,
+          "blocks": recs, "against_unsharded": against, "device": name, "nvidia_smi": smi})
+    return recs[0]["launches"]
+
+
+def _rainfarm_path(name, smi):
+    """Z: ``downscale_ensemble`` of the bench's 128^2 coarse field by 4
+    into 24 realizations, timed once after a warm-up with every kernel
+    count 0; each realization's aggregate back to 128^2 against the input,
+    and the core on the card against the CPU on the same white draws
+    (with and without the Gaussian kernel)."""
+    from pysteps_tpu_torch.downscaling import rainfarm
+    from pysteps_tpu_torch.utils.dimension import aggregate_fields
+
+    factor, members = RAINFARM_512
+    coarse = np.asarray(bench_rain(SIDE, n_frames=3)[2][::4, ::4], np.float64)
+    rainfarm.downscale_ensemble(coarse, factor, members, seed=42)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.time()
+    out = rainfarm.downscale_ensemble(coarse, factor, members, seed=43)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    _check_launches("Z", launches, {})
+    if tuple(out.shape) != (members, SIDE, SIDE) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"Z: output {tuple(out.shape)} not finite of its shape")
+    agg = aggregate_fields(out, factor, axis=(-2, -1)).cpu().double().numpy()
+    scale = max(float(np.abs(coarse).max()), 1e-6)
+    agg_err = float(np.abs(agg - coarse[None]).max(axis=(1, 2)).max()) / scale
+    if agg_err > 2e-3:  # tests/test_downscaling.py:68-73
+        raise AssertionError(f"Z: aggregates miss the input by {agg_err} of its max")
+    alpha = rainfarm._estimate_alpha(coarse, rainfarm._compute_freq_array(coarse))
+    white = torch.rand((members, SIDE, SIDE), generator=torch.Generator().manual_seed(5))
+    p = torch.as_tensor(coarse, dtype=torch.float32)
+    a32 = float(np.float32(alpha))
+
+    def core_on(dev, kernel):
+        return rainfarm._downscale_core(p.to(dev), p.to(dev), a32, white.to(dev), 0.0,
+                                        factor, kernel, False, False)
+
+    core = {str(k): _span_check(f"Z core ({k})", core_on("cuda", k), core_on("cpu", k),
+                                RAINFARM_CORE_TOL) for k in (None, "gaussian")}
+    emit({"phase": "path Z", "shape": list(out.shape), "fields_per_s": members / wall,
+          "wall_s": wall, "alpha": alpha, "aggregate_max_err_of_max": agg_err,
+          "core_card_vs_cpu": core, "launches": launches, "device": name,
+          "nvidia_smi": smi})
+    return launches
+
+
+def _distributed_verification(mesh, forecast, name, smi):
+    """``distributed_verify`` on the 1-rank mesh over path A's last lead
+    against the serial scores of the verification phase: contingency
+    counts exact (int64), CSI / POD / FAR within 1e-6, CRPS and FSS within
+    1e-5 (relative)."""
+    from pysteps_tpu_torch.verification import detcatscores, probscores, spatialscores
+    from pysteps_tpu_torch.verification import parallel as vparallel
+
+    frames, _ = bench_inputs(SIDE, n_frames=3 + N_LEADS)
+    obs = torch.as_tensor(frames[-1], device="cuda")
+    mean = torch.nanmean(forecast, dim=0)
+    rec = {"phase": "distributed verification", "shape": list(forecast.shape),
+           "mesh": [1, 1, 1], "backend": "nccl", "device": name, "nvidia_smi": smi}
+    accum, compute = vparallel.distributed_verify("det_cat", mesh, thr=VERIFY_THR_DB)
+    state = accum(mean[None], obs[None])
+    serial = detcatscores.det_cat_fct_init(VERIFY_THR_DB)
+    detcatscores.det_cat_fct_accum(serial, mean, obs)
+    for k in ("hits", "false_alarms", "misses", "correct_negatives"):
+        if state[k].dtype != torch.int64 or int(state[k]) != int(serial[k]):
+            raise AssertionError(f"distributed {k}: {state[k]} against {serial[k]}")
+    checks = {"det_cat": ([compute(state, s) for s in ("CSI", "POD", "FAR")],
+                          [detcatscores.det_cat_fct_compute(serial, s)
+                           for s in ("CSI", "POD", "FAR")], 1e-6)}
+    accum, compute = vparallel.distributed_verify("CRPS", mesh)
+    checks["CRPS"] = ([compute(accum(forecast[None], obs[None]))],
+                      [probscores.CRPS(forecast, obs)], 1e-5)
+    for sc in VERIFY_SCALES:
+        accum, compute = vparallel.distributed_verify("FSS", mesh, thr=VERIFY_THR_DB, scale=sc)
+        checks[f"FSS scale {sc}"] = ([compute(accum(mean[None], obs[None]))],
+                                     [spatialscores.fss(mean, obs, VERIFY_THR_DB, sc)], 1e-5)
+    rec["counts"] = {k: int(state[k]) for k in ("hits", "false_alarms", "misses",
+                                                "correct_negatives")}
+    for label, (dist_v, serial_v, rtol) in checks.items():
+        d = np.array([float(v) for v in dist_v])
+        s_ = np.array([float(v) for v in serial_v])
+        rel = float(np.max(np.abs(d - s_) / np.maximum(np.abs(s_), 1e-30)))
+        rec[label] = {"distributed": d.tolist(), "serial": s_.tolist(), "max_rel_diff": rel,
+                      "rtol": rtol}
+        if rel > rtol:
+            raise AssertionError(f"distributed {label}: {rec[label]}")
+    emit(rec)
+
+
+def phase_parallel(name, smi, forecast):
+    """Paths Y, Y' and Z and the distributed verification (see the module
+    docstring); the process group is destroyed at the end, and on failure."""
+    import torch.distributed as dist
+
+    t0 = time.time()
+    by_path = {}
+    mesh = _nccl_mesh()
+    try:
+        E, side, T = PATH_Y
+        rec, cap = _sharded_path(
+            "Y", mesh, E, side, T, bench_inputs(side), SHARDED_KWARGS,
+            {"resample_axis0": T, "resample_axis1": T, "rim_from_mask": 1}, name, smi)
+        rec["components_card_vs_cpu"] = _sharded_components(cap, mesh)
+        del cap
+        rec["law_card_vs_cpu"] = _sharded_law(mesh)
+        emit(rec)
+        by_path["Y"] = rec["launches"]
+        E, side, T, levels = PATH_Y2
+        rec, cap = _sharded_path(
+            "Y'", mesh, E, side, T, parallel_workers.conus_inputs(side, side),
+            dict(SHARDED_KWARGS, n_cascade_levels=levels, vel_pert_method=None, seed=13),
+            {"resample_axis0": T, "resample_axis1": T, "rim_from_mask": 1}, name, smi)
+        del cap
+        emit(rec)
+        by_path["Y'"] = rec["launches"]
+        torch.cuda.empty_cache()
+        by_path["A-ens"] = _ens_blocks_path(mesh, name, smi)
+        by_path["Z"] = _rainfarm_path(name, smi)
+        _distributed_verification(mesh, forecast, name, smi)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "parallel", "seconds": time.time() - t0, "device": name, "nvidia_smi": smi})
+    return by_path
+
+
 def _leaves(x):
     if isinstance(x, dict):
         return [v for k in sorted(x) for v in _leaves(x[k])]
@@ -2347,6 +2759,7 @@ def _leaves(x):
 
 
 def main():
+    t0 = time.time()
     name, smi = phase_device()
     peaks = card_peaks(name)
     report = phase_build()
@@ -2363,6 +2776,7 @@ def main():
     phase_verification(name, smi, captured["forecast_last_lead"])
     by_path.update(phase_linda(name, smi))
     by_path.update(phase_blending(name, smi))
+    by_path.update(phase_parallel(name, smi, captured["forecast_last_lead"]))
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}
@@ -2377,7 +2791,8 @@ def main():
              "warp_route", "rim_route", "ptxas")
     emit({"kernels": [{k: r[k] for k in keys} | {k: r[k] for k in extra if k in r}
                       for r in recs],
-          "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]}})
+          "card": smi, "peaks": {"bytes_per_s": peaks[0], "f32_flop_per_s": peaks[1]},
+          "script_s": time.time() - t0})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
 

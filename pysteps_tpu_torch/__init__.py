@@ -18,6 +18,7 @@ from pysteps_tpu_torch import (  # noqa: F401
     blending,
     cascade,
     config,
+    downscaling,
     extrapolation,
     feature,
     motion,

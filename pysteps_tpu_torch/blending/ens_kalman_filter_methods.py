@@ -270,7 +270,8 @@ class MaskedEnKF(EnsembleKalmanFilter):
         super().__init__(config, params)
         kwargs = getattr(params, "combination_kwargs", {}) or {}
         if kwargs.get("mesh") is not None or getattr(params, "mesh", None) is not None:
-            raise NotImplementedError("mesh is not ported yet")
+            raise NotImplementedError(
+                "mesh is not ported yet (ROADMAP A12b: the sharded EnKF)")
         self._iterative_prob_matching = kwargs.get("iterative_prob_matching", True)
         self._inflation_factor_bg = kwargs.get("inflation_factor_bg", 1.0)
         self._inflation_factor_obs = kwargs.get("inflation_factor_obs", 1.0)

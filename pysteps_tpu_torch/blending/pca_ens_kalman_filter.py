@@ -322,7 +322,8 @@ class EnKFCombinationNowcaster:
                  precip_mask_dilation=1, n_noise_fields=30,
                  smooth_radar_mask_range=0, mesh=None, device=None):
         if mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
+            raise NotImplementedError(
+                "mesh is not ported yet (ROADMAP A12b: the sharded PCA EnKF)")
         self.device = resolve_device(device, obs_precip, nwp_precip, velocity)
         self.obs_precip = nowcast_utils.to_numpy(obs_precip).astype(np.float32)
         # an NWP stack already on the device stays there

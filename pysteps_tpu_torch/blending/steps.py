@@ -633,7 +633,8 @@ def forecast(
     if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight < 0:
         raise ValueError("timestep_start_full_nwp_weight cannot be smaller than zero")
     if mesh is not None:
-        raise NotImplementedError("mesh is not ported yet")
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP A12b: parallel/sharded_blending)")
     device = resolve_device(device, precip, precip_models, velocity, velocity_models)
     t0 = time.time()
     host = nowcast_utils.to_numpy

@@ -297,7 +297,8 @@ def vet(input_images, sectors=((32, 16, 4, 2), (32, 16, 4, 2)), smooth_gain=1e6,
     sector displacements (numpy).  ``mesh`` (a sharded cost) is not
     ported yet and raises ``NotImplementedError``."""
     if mesh is not None:
-        raise NotImplementedError("vet(mesh=...): the sharded cost is not ported yet")
+        raise NotImplementedError(
+            "vet(mesh=...): the sharded cost is not ported yet (ROADMAP A12b)")
     dev = device_of(input_images, device)
     if isinstance(input_images, torch.Tensor):
         input_images = input_images.detach().cpu().numpy()

@@ -279,9 +279,24 @@ def _white_normal(generator, input_shape, batch):
                        device=generator.device)
 
 
+def _fft_noise_draw(generator, input_shape, batch, domain, use_full_fft):
+    """The white draw of :func:`_generate_fft_noise`: random phases in the
+    spectral domain, else white fields (full planes with ``use_full_fft``)
+    or their half-plane spectra."""
+    if domain == "spectral":
+        if use_full_fft:
+            return _spectral_phase_white(generator, input_shape, batch, use_full_fft=True)
+        return _spectral_phase_white(generator, input_shape, batch)
+    if domain != "spatial":
+        raise ValueError(f"invalid domain {domain}")
+    if use_full_fft:
+        return _white_normal(generator, input_shape, batch)
+    return _spectral_white(generator, input_shape, batch)
+
+
 def _generate_fft_noise(
     generator, filt, input_shape, batch, domain="spatial", standardize=True,
-    use_full_fft=False,
+    use_full_fft=False, keep=None,
 ):
     """White noise -> filter ``filt`` -> noise: an (m, n//2+1) half-plane
     filter, or an (m, n) full-plane one with ``use_full_fft``.
@@ -290,29 +305,21 @@ def _generate_fft_noise(
     spectra (rfft2 half-planes, or fft2 planes with ``use_full_fft``) with
     the DC bin zeroed.  ``standardize=False`` skips the final
     standardization, which a normalized cascade decomposition of the noise
-    cancels anyway."""
-    if use_full_fft:
-        if domain == "spectral":
-            fN = _spectral_phase_white(generator, input_shape, batch, use_full_fft=True) * filt
-            fN[..., 0, 0] = 0.0
-            if not standardize:
-                return fN
-            return fN / spectral_utils.std(fN, input_shape, use_full_fft=True)[..., None, None]
-        if domain != "spatial":
-            raise ValueError(f"invalid domain {domain}")
-        white = _white_normal(generator, input_shape, batch)
-        N = torch.fft.ifft2(torch.fft.fft2(white) * filt).real
-        return _standardize(N) if standardize else N
+    cancels anyway.  ``keep`` (a slice) keeps those members of the
+    ``batch`` drawn: the generator advances through the whole draw."""
+    white = _fft_noise_draw(generator, input_shape, batch, domain, use_full_fft)
+    if keep is not None:
+        white = white[keep]
     if domain == "spectral":
-        fN = _spectral_phase_white(generator, input_shape, batch) * filt
+        fN = white * filt
         fN[..., 0, 0] = 0.0
         if not standardize:
             return fN
-        return fN / spectral_utils.std(fN, input_shape)[..., None, None]
-    if domain != "spatial":
-        raise ValueError(f"invalid domain {domain}")
-    fN = _spectral_white(generator, input_shape, batch) * filt
-    N = torch.fft.irfft2(fN, s=tuple(input_shape))
+        return fN / spectral_utils.std(fN, input_shape, use_full_fft=use_full_fft)[..., None, None]
+    if use_full_fft:
+        N = torch.fft.ifft2(torch.fft.fft2(white) * filt).real
+    else:
+        N = torch.fft.irfft2(white * filt, s=tuple(input_shape))
     return _standardize(N) if standardize else N
 
 
@@ -507,14 +514,18 @@ def generate_noise_2d_ssft_filter(F, randstate=None, seed=None, generator=None, 
     )[0]
 
 
-def _generate_ssft_noise(generator, filt, masks, input_shape, batch):
+def _generate_ssft_noise(generator, filt, masks, input_shape, batch, keep=None):
     """(batch, m, n) standardized SSFT noise: each white field's spectrum
     times every window's filter (wy, wx, m, n), one batched inverse FFT,
     composed with the window ``masks`` and divided by their sum.  The white
-    fields are drawn for the whole batch first; members then go through in
-    chunks whose complex intermediate stays within ``_SSFT_CHUNK_BYTES``."""
+    fields are drawn for the whole batch first (``keep``, a slice, keeps
+    those members of it); members then go through in chunks whose complex
+    intermediate stays within ``_SSFT_CHUNK_BYTES``."""
     m, n = input_shape
     white = _white_normal(generator, input_shape, batch)
+    if keep is not None:
+        white = white[keep]
+        batch = white.shape[0]
     n_win = filt.shape[0] * filt.shape[1]
     filt = filt.reshape(n_win, m, n)
     masks = masks.reshape(n_win, m, n)

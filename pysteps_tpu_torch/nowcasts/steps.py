@@ -26,7 +26,15 @@ ssft, nested, or none) with either ``noise_stddev_adj`` ("auto",
 "fixed"); the filters are built on the forecast's device.  The callback
 gets each lead's frames as host numpy arrays; with ``return_output=False``
 they stream in chunks of at most 6 leads and the forecast returns None.
-Not ported (it raises ``NotImplementedError``): ``mesh``.
+
+With ``mesh`` (a ``parallel.make_mesh`` mesh; every rank calls the forecast
+with the same inputs) the members split over the mesh's "ens" dimension
+when it has more than one rank and divides the member count, as the JAX
+package's ``_steps_scan_ens_sharded`` splits them; otherwise the forecast
+is the unsharded one.  A rank draws the noise of every member from the one
+generator and keeps its own members' draws, so the sharded forecast equals
+the unsharded one; one all-gather over "ens" returns every member to every
+rank.
 """
 
 import dataclasses
@@ -35,6 +43,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from pysteps_tpu_torch import cascade, noise
 from pysteps_tpu_torch._device import resolve_device
@@ -60,6 +69,7 @@ from pysteps_tpu_torch.noise.motion import (
 )
 from pysteps_tpu_torch.nowcasts import utils as nowcast_utils
 from pysteps_tpu_torch.ops import pallas_chain, pallas_histmatch
+from pysteps_tpu_torch.parallel.mesh import all_gather_cat, axis_size, member_block
 from pysteps_tpu_torch.postprocessing.probmatching import prepare_cdf_matcher
 from pysteps_tpu_torch.timeseries import autoregression, correlation
 from pysteps_tpu_torch.utils import tapering as tapering_utils
@@ -267,17 +277,28 @@ def _ar_step_lags(lags, phi, eps=None):
 def _member_update(
     generator, cascades_j, phi, noise_filt, noise_filt_shape, weights_2d,
     noise_std_coeffs, means_last, stds_last, spectral, batch,
-    use_full_fft=False, ssft_masks=None,
+    use_full_fft=False, ssft_masks=None, keep=None,
 ):
     """A member chunk's cascade update: noise -> AR -> recompose.
     ``cascades_j``: tuple of p lags (batch, k, m, n) spatial or
     (batch, k, m, n//2+1) spectral.  ``noise_filt`` is a half-plane filter,
     a full-plane one with ``use_full_fft``, or with ``ssft_masks`` an SSFT
-    / nested stack, whose noise is made in the spatial domain."""
+    / nested stack, whose noise is made in the spatial domain.  With
+    ``keep`` (a slice) the noise of ``batch`` members is drawn and those
+    members of it update ``cascades_j``; an empty ``keep`` only draws and
+    returns (None, None)."""
     shape = noise_filt_shape
+    if keep is not None and keep.stop == keep.start:
+        if ssft_masks is not None:
+            fftgenerators._white_normal(generator, shape, batch)
+        else:
+            fftgenerators._fft_noise_draw(
+                generator, shape, batch, "spectral" if spectral else "spatial", use_full_fft
+            )
+        return None, None
     if ssft_masks is not None:
         eps = fftgenerators._generate_ssft_noise(
-            generator, noise_filt, ssft_masks, shape, batch
+            generator, noise_filt, ssft_masks, shape, batch, keep=keep
         )
         if spectral:
             eps_levels, _, _ = decompose_spectral_core(
@@ -288,7 +309,7 @@ def _member_update(
     elif spectral:
         eps_fft = fftgenerators._generate_fft_noise(
             generator, noise_filt, shape, batch, domain="spectral",
-            standardize=False, use_full_fft=use_full_fft,
+            standardize=False, use_full_fft=use_full_fft, keep=keep,
         )
         eps_levels, _, _ = decompose_spectral_core(
             eps_fft, weights_2d, shape, normalize=True
@@ -296,7 +317,7 @@ def _member_update(
     else:
         eps = fftgenerators._generate_fft_noise(
             generator, noise_filt, shape, batch, domain="spatial",
-            standardize=False, use_full_fft=use_full_fft,
+            standardize=False, use_full_fft=use_full_fft, keep=keep,
         )
         eps_levels, _, _ = decompose_core(eps, weights_2d, normalize=True)
     eps_levels = eps_levels * noise_std_coeffs[:, None, None]
@@ -385,6 +406,7 @@ def _steps_scan(
     timestep_min, mask_rim, struct_radius, n_iter, interp_order, need_det, E,
     out_dtype="float32", member_chunk=None, max_disp=None, pwl_match=False,
     use_chain=False, use_full_fft=False, ssft_masks=None, callback=None, t_chunk=None,
+    members=None,
 ):
     """The forecast loop over ``int_steps`` lead times.  Returns the
     member-major (E, int_steps, m, n) output; with ``callback``, hands
@@ -401,6 +423,9 @@ def _steps_scan(
     chain, taken with the PWL matcher only) choose the path; the device of
     the tensors chooses between the kernels and their plain versions.
     ``member_chunk`` runs the members in sequential chunks of that size.
+    ``members`` (start, stop) computes only those of the E members (a
+    rank's block): the noise of every chunk is still drawn in full and
+    the block's members kept, so they equal the unsharded run's.
     """
     del precip_min  # kept for the JAX package's signature
     m, n = precip_last.shape
@@ -411,13 +436,14 @@ def _steps_scan(
         window = torch.fft.rfft2(window)
     ar_order = window.shape[1]
     lags0 = tuple(window[:, i] for i in range(ar_order))
-    cascades = tuple(lag.expand((E,) + lag.shape) for lag in lags0) if noise else None
+    e0, e1 = members if members is not None else (0, E)
+    cascades = tuple(lag.expand((e1 - e0,) + lag.shape) for lag in lags0) if noise else None
     pm_match, pm_state = (
         prepare_cdf_matcher(precip_last, pwl_match) if probmatching == "cdf"
         else (None, None)
     )
     chain_ok = use_chain and pm_match is pallas_histmatch.match_cdf_pwl
-    mask_prec = mask_prec_init.expand(E, m, n)
+    mask_prec = mask_prec_init.expand(e1 - e0, m, n)
     det_window = lags0 if need_det else None
     # the displacement is carried on a coarse grid (full-res pixel units)
     coarse = 4 if (max_disp is not None and m % 4 == 0 and n % 4 == 0) else 1
@@ -425,19 +451,27 @@ def _steps_scan(
     V_n_c = coarsen_velocity(V_n, coarse) if vel_pert else None
     V_perp_c = coarsen_velocity(V_perp, coarse) if vel_pert else None
     displacement = torch.zeros(
-        (E, 2, m // coarse, n // coarse), dtype=torch.float32, device=dev
+        (e1 - e0, 2, m // coarse, n // coarse), dtype=torch.float32, device=dev
     )
     buf_leads = min(t_chunk, int_steps) if callback is not None else int_steps
-    out = torch.zeros((E, buf_leads, m, n), dtype=getattr(torch, out_dtype), device=dev)
+    out = torch.zeros((e1 - e0, buf_leads, m, n), dtype=getattr(torch, out_dtype), device=dev)
     t0 = 0
     mc = member_chunk if member_chunk and member_chunk < E else E
-    chunks = [slice(c0, c0 + mc) for c0 in range(0, E, mc)]
+    # each chunk of the E members (its draw), its part of the computed
+    # block (local indices) and that part's place in the chunk's draw
+    chunks = []
+    for c0 in range(0, E, mc):
+        lo = max(c0, e0)
+        hi = max(min(c0 + mc, e1), lo)
+        chunks.append((min(mc, E - c0), slice(lo - e0, hi - e0),
+                       None if members is None else slice(lo - c0, hi - c0)))
+    parts_at = [s for _, s, _ in chunks if s.stop > s.start]
 
     def gather(parts, like):
         if len(parts) == 1:
             return parts[0]
         full = torch.empty_like(like)
-        for s, part in zip(chunks, parts):
+        for s, part in zip(parts_at, parts):
             full[s] = part
         return full
 
@@ -454,16 +488,20 @@ def _steps_scan(
             sprog_m = nowcast_utils.compute_percentile_mask(det_field, war)
 
         new_lags, new_masks, new_disps = [], [], []
-        for s in chunks:
+        for n_draw, s, keep in chunks:
             Ec = s.stop - s.start
             if noise:
                 casc_j, field = _member_update(
                     generator, tuple(c[s] for c in cascades), phi, noise_filt,
                     noise_filt_shape, weights_2d, noise_std_coeffs,
-                    means_last, stds_last, spectral, Ec,
-                    use_full_fft=use_full_fft, ssft_masks=ssft_masks,
+                    means_last, stds_last, spectral, n_draw,
+                    use_full_fft=use_full_fft, ssft_masks=ssft_masks, keep=keep,
                 )
+                if Ec == 0:  # a chunk outside the block: its draw only
+                    continue
                 new_lags.append(casc_j[-1])
+            elif Ec == 0:
+                continue
             else:
                 field = det_field.expand(Ec, m, n)
             mask_j = mask_prec[s]
@@ -482,9 +520,10 @@ def _steps_scan(
                 a2, b2, c2 = (np.float32(v) for v in p_perp)
                 g_par = float(a1 * t_total**b1 + c1)
                 g_perp = float(a2 * t_total**b2 + c2)
+                gs = slice(e0 + s.start, e0 + s.stop)
                 vel_j = vel_c + (
-                    eps_par[s, None, None, None] * g_par * V_n_c
-                    + eps_perp[s, None, None, None] * g_perp * V_perp_c
+                    eps_par[gs, None, None, None] * g_par * V_n_c
+                    + eps_perp[gs, None, None, None] * g_perp * V_perp_c
                 ) / vsf
             else:
                 vel_j = vel_c
@@ -694,12 +733,17 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
     member_chunk = (
         cfg.member_chunk if cfg.member_chunk and E % cfg.member_chunk == 0 else None
     )
+    # the members split over the mesh's "ens" dimension where it has more
+    # than one rank and divides E (the JAX package's rule)
+    ens = axis_size(cfg.mesh, "ens") if cfg.mesh is not None else 1
+    members = member_block(E, cfg.mesh) if ens > 1 and E % ens == 0 else None
     _sync(device)
     init_time = time.time() - t_init0
     t_loop0 = time.time()
     # the streaming contract: chunks of at most 6 leads reach the callback
     # and leave the device, so it never holds E x T frames
-    stream = cfg.callback is not None and not cfg.return_output and subsel is None
+    stream = (cfg.callback is not None and not cfg.return_output and subsel is None
+              and members is None)
     out = _steps_scan(
         state.window, state.precip_mask, state.generator, velocity, params.phi,
         noise_filt, (m, n), weights_2d, noise_std_coeffs,
@@ -733,7 +777,10 @@ def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
         ssft_masks=ssft_masks,
         callback=cfg.callback if stream else None,
         t_chunk=6,
+        members=members,
     )
+    if members is not None:
+        out = all_gather_cat(out, cfg.mesh, "ens", dim=0)
     _sync(device)
     loop_time = time.time() - t_loop0
 
@@ -813,8 +860,12 @@ class StepsNowcaster:
             raise ValueError(f"unknown noise_stddev_adj {cfg.noise_stddev_adj}")
         if cfg.noise_method not in _NOISE_METHODS:
             raise ValueError(f"unknown noise_method {cfg.noise_method}")
-        if cfg.mesh is not None:
-            raise NotImplementedError("mesh is not ported yet")
+        if cfg.mesh is not None and not isinstance(cfg.mesh, DeviceMesh):
+            raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
+        if cfg.mesh is not None and cfg.mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {cfg.mesh.device_type} mesh cannot run a forecast on {self.device}"
+            )
         if cfg.domain not in ("spatial", "spectral"):
             raise ValueError(f"unknown domain {cfg.domain}")
         if cfg.velocity_perturbation_method not in (None, "bps"):
@@ -871,7 +922,11 @@ def forecast(
     ``RuntimeError`` when CUDA is needed and absent.  ``callback`` gets
     each lead's (E, m, n) frames as host numpy arrays; with
     ``return_output=False`` (and an int ``timesteps``) the loop streams
-    them in chunks of at most 6 leads and returns None."""
+    them in chunks of at most 6 leads and returns None.  With ``mesh`` (a
+    ``parallel.make_mesh`` mesh, every rank calling with the same inputs)
+    the members split over its "ens" dimension where that has more than
+    one rank and divides ``n_ens_members``, and every rank gets the whole
+    ensemble, equal to the unsharded forecast's."""
     device = resolve_device(device, precip, velocity)
     config = StepsNowcasterConfig(
         n_ens_members=n_ens_members,

@@ -27,7 +27,7 @@ def pca_transform(forecast_ens, mask=None, pca_params=None, get_params=False,
     input on the card unless ``device`` says otherwise)."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh is not ported yet: the sharded PCA fit comes with the parallel package"
+            "mesh is not ported yet (ROADMAP A12b: the feature-sharded PCA fit)"
         )
     X = as_device_tensor(forecast_ens, device, torch.float32)
     if X.ndim != 2:

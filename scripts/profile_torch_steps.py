@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's STEPS main path goes, on one card.
 
     python3 scripts/profile_torch_steps.py [--runs 10] [--out FILE] [--no-chain] [--shapes]
-                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R|T|U|V|W]
+                                           [--path A|F|G|H|I|J|K|L|M|N|O|P|Q|R|T|U|V|W|Y]
 
 Runs ``pysteps_tpu_torch.nowcasts.get_method("steps")`` at the headline
 configuration of ``chip_smoke.py`` (path A: 96 members x 512^2 x 12
@@ -18,7 +18,10 @@ the bench's numpy rain-rate frames, T deterministic with the domain as
 one feature (frames/s), U with blob features, 10 members and BPS;
 ``--path V``: STEPS blending at the bench's ``blend_512``, 96 members x
 512^2 x 12 leads; ``--path W``: the PCA EnKF at ``pca_enkf_256``, 24
-members x 256^2 over 12 leads, with its NWP ensemble on the card), once
+members x 256^2 over 12 leads, with its NWP ensemble on the card;
+``--path Y``: ``parallel.sharded_steps.forecast`` at 96 members x 512^2 x
+12 leads on a 1 x 1 x 1 mesh of an NCCL process group of this process,
+for which init and loop seconds are not split), once
 to warm up, ``--runs`` times on the host clock (each ending in
 ``torch.cuda.synchronize()``), then once under ``torch.profiler``.  Prints
 one JSON line: the card's name and power limit, each run's init and loop
@@ -55,8 +58,9 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     BENCH_KWARGS, BLEND_MEMBERS, ENKF_LEVELS, ENKF_MEMBERS, ENKF_SIDE, LINDA_PATHS,
-    MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SIDE, _blend_kw, _enkf_inputs,
-    _linda_inputs, bench_inputs, blend_inputs, nowcast_path, takes_measure_time,
+    MOTION_PATHS, N_LEADS, N_MEMBERS, NOISE_PATHS, SHARDED_KWARGS, SIDE, _blend_kw,
+    _enkf_inputs, _linda_inputs, _nccl_mesh, bench_inputs, blend_inputs, nowcast_path,
+    takes_measure_time,
 )
 from pysteps_tpu_torch import blending, motion, nowcasts  # noqa: E402
 from pysteps_tpu_torch.nowcasts import steps as steps_mod  # noqa: E402
@@ -94,15 +98,15 @@ def main():
     ap.add_argument("--shapes", action="store_true",
                     help="add the device ms of the operators on the LUT build's field")
     ap.add_argument("--path", choices=["A", *NOISE_PATHS, *"IJKLM", *MOTION_PATHS, *LINDA_PATHS,
-                                       "V", "W"],
+                                       "V", "W", "Y"],
                     default="A", help="chip_smoke.py's path to run (F, G, H: the other noise "
                     "generators; I-M: the other nowcasts; N-R: the motion solvers; T, U: "
-                    "LINDA; V: STEPS blending; W: the PCA EnKF)")
+                    "LINDA; V: STEPS blending; W: the PCA EnKF; Y: the y-sharded STEPS)")
     args = ap.parse_args()
     moving = args.path in MOTION_PATHS
     linda = args.path in LINDA_PATHS
     blend = args.path in ("V", "W")
-    nowcast = args.path in "IJKLM" or moving or linda or blend
+    nowcast = args.path in "IJKLMY" or moving or linda or blend
     if nowcast and (args.no_chain or args.shapes):
         raise SystemExit("profile_torch_steps: --no-chain and --shapes are STEPS' options")
     E, side, T, extra_kw = (
@@ -173,6 +177,19 @@ def main():
             out, init_s, loop_s = f(rain, velocity, T, **f_kw)
             torch.cuda.synchronize()
             return time.time() - t0, init_s, loop_s, out
+    elif args.path == "Y":
+        from pysteps_tpu_torch.parallel import sharded_steps
+
+        mesh = _nccl_mesh()
+        precip_db, velocity = bench_inputs(side)
+        out_shape = (E, T, side, side)
+
+        def run(seed):
+            t0 = time.time()
+            out = sharded_steps.forecast(precip_db, velocity, T, mesh, n_ens_members=E,
+                                         **dict(SHARDED_KWARGS, seed=seed))
+            torch.cuda.synchronize()
+            return time.time() - t0, None, None, out
     elif nowcast:
         f, f_args, f_kw, frames = nowcast_path(args.path, dev)
         timed = takes_measure_time(f)
@@ -266,6 +283,8 @@ def main():
         "top_kernels": table[:12],
         **extra,
     }), flush=True)
+    if args.path == "Y":
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -12,9 +12,11 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-# chip_smoke.py and the checks it shares with the card tests
+# chip_smoke.py, the checks it shares with the card tests and the module
+# the spawned ranks of the parallel tests import
 PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_blending_checks.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_blending_checks.py",
+    ROOT / "tests" / "torch_parallel_workers.py"]
 
 
 def _forbidden(module):
@@ -125,7 +127,34 @@ def _numpy_entry_points():
         ("initialize_bps", lambda device: motion.initialize_bps(
             series[:2], 1.0, 5, seed=1, device=device)["V_par"]),
     ] + (_numpy_nowcast_entry_points() + _numpy_motion_entry_points()
-         + _numpy_linda_feature_and_score_entry_points() + _numpy_blending_entry_points())
+         + _numpy_linda_feature_and_score_entry_points() + _numpy_blending_entry_points()
+         + _numpy_downscaling_and_dimension_entry_points())
+
+
+def _numpy_downscaling_and_dimension_entry_points():
+    """RainFARM and the dimension utilities on 16^2 numpy inputs."""
+    from pysteps_tpu_torch.downscaling import rainfarm
+    from pysteps_tpu_torch.utils import dimension
+
+    rng = np.random.default_rng(8)
+    rain = np.maximum(rng.gamma(0.8, 3.0, (16, 16)) - 1.0, 0.0)
+    stack = rain[None].repeat(2, 0).astype(np.float32)
+    meta = {"unit": "mm/h", "xpixelsize": 1.0, "ypixelsize": 1.0, "x1": 0.0, "x2": 16.0,
+            "y1": 0.0, "y2": 16.0}
+    return [
+        ("rainfarm.downscale", lambda device: rainfarm.downscale(rain, 2, seed=1,
+                                                                 device=device)),
+        ("rainfarm.downscale_ensemble", lambda device: rainfarm.downscale_ensemble(
+            rain, 2, 2, seed=1, device=device)),
+        ("aggregate_fields", lambda device: dimension.aggregate_fields(
+            stack, 2, axis=1, device=device)),
+        ("aggregate_fields_space", lambda device: dimension.aggregate_fields_space(
+            stack, meta, 2.0, device=device)[0]),
+        ("clip_domain", lambda device: dimension.clip_domain(
+            stack, meta, (2.0, 9.0, 3.0, 12.0), device=device)[0]),
+        ("square_domain", lambda device: dimension.square_domain(
+            stack[:, :12], meta, device=device)[0]),
+    ]
 
 
 def _numpy_nowcast_entry_points():

@@ -246,8 +246,9 @@ def test_unported_options_raise():
     frames, velocity = _inputs()
     precip = _to_db(frames)
     f = tnowcasts.get_method("steps")
+    # mesh= is ported (tests/test_torch_parallel.py): it takes a DeviceMesh
     for extra in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             f(precip, velocity, 2, device="cpu", **dict(KW, n_ens_members=2, **extra))
     for extra in (
         dict(noise_stddev_adj="sometimes"), dict(noise_stddev_adj="auto", precip_thr=None,
