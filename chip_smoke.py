@@ -139,7 +139,22 @@ Phases, each printing JSON lines:
    realizations of 512^2 with no kernel launched, each realization's
    aggregate against the input and the core card against CPU on the same
    white draws; ``distributed_verify`` over path A's last lead against
-   the verification phase's serial scores;
+   the verification phase's serial scores; V-y
+   ``parallel.sharded_blending.blending_scan_sharded`` at V's size and
+   keywords, on the arguments ``blending.steps.scan_inputs`` prepares,
+   with its K1 launches on the halo-extended members held bit-equal to
+   the plain version, its matcher, rim mask and halo warp on its last
+   lead's arguments and a small whole loop (8 x 128^2 x 4, the same draws)
+   card against CPU, and its law against V's; V-ens blending's ``mesh=``
+   at V's size as each of 2 "ens" ranks in turn, with V's launches a
+   block and the blocks within 3e-2 dB of the unsharded forecast; W-mesh
+   the PCA EnKF at ``pca_enkf_256`` with the mesh against W's forecast,
+   the sharded PCA fit against the SVD and ``MaskedEnKF`` with the mesh
+   against it without; O-mesh VET at O's size with the mesh (no K1), its
+   flow beside O's, ``tests/test_parallel.py``'s VET case against the
+   unsharded exact branch and ``tests/test_motion.py``'s truth bound;
+21. native: the port's C++ decoders built with the host's ``g++`` and
+   ``radolan_decode`` against the NumPy decode, bit for bit;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -225,6 +240,32 @@ CARD_PEAKS = {
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+# outputs of earlier paths that later lines are held against: V's law
+# scores (V-y) and O's flow (O-mesh)
+KEPT = {}
+
+
+def _law_scores_card(fc, truth):
+    """``parallel_workers.law_scores`` on the card: the CRPS over the leads
+    and the spread/error ratio, in rain rate, of a dB forecast (E, T, m,
+    n) against the rain-rate truth (T, m, n), in float64."""
+    fc = torch.as_tensor(fc).double()
+    truth = torch.as_tensor(np.asarray(truth), dtype=torch.float64, device=fc.device)
+    rr = 10.0 ** (fc / 10.0) * (fc > -10)
+    E = rr.shape[0]
+    crps = []
+    for t in range(rr.shape[1]):
+        ens, obs = rr[:, t].reshape(E, -1), truth[t].reshape(-1)
+        ok = torch.isfinite(ens).all(dim=0) & torch.isfinite(obs)
+        ens, obs = ens[:, ok], obs[ok]
+        srt = torch.sort(ens, dim=0).values
+        w = (2 * torch.arange(E, device=fc.device, dtype=torch.float64) + 1 - E)[:, None]
+        crps.append(float(((ens - obs).abs().mean(dim=0) - (w * srt).sum(dim=0) / E**2).mean()))
+    spread = torch.nanmean(rr.std(dim=0))
+    err = torch.sqrt(torch.nanmean((torch.nanmean(rr, dim=0) - truth) ** 2))
+    return {"crps": float(np.mean(crps)), "spread_error": float(spread / err)}
 
 
 def card_peaks(name):
@@ -1578,10 +1619,12 @@ def _vet_gradient(frames, guesses):
     return rec
 
 
-def _truth_on_card(method):
-    """``tests/test_motion.py``'s case of ``method`` on the card: the relative
-    RMSE against the true motion, which must be under its bound."""
+def _truth_on_card(method, **extra):
+    """``tests/test_motion.py``'s case of ``method`` on the card (with the
+    keywords ``extra``): the relative RMSE against the true motion, which
+    must be under its bound."""
     n_frames, bound, kw = MOTION_TRUTH[method]
+    kw = dict(kw, **extra)
     frames = make_synthetic_sequence(n_frames=9, shape=(200, 200), velocity=(2.0, 1.0),
                                      seed=3)
     db = (10.0 * np.log10(np.maximum(frames, 0.1))).astype(np.float32)[:n_frames]
@@ -1652,6 +1695,7 @@ def phase_motion(name, smi):
         if label == "O":
             _, guesses = f(x, intermediate_steps=True, **kw)
             rec["gradient"] = _vet_gradient(frames, guesses)
+            KEPT["O_flow"] = flow.detach().clone()
         rec["truth_test_motion"] = _truth_on_card(method)
         by_path[label] = launches
         emit({**rec, **common})
@@ -2252,6 +2296,7 @@ def phase_blending(name, smi):
     with tempfile.TemporaryDirectory() as skill_dir:
         rec, out = _blend_path("V", SIDE, T, BLEND_MEMBERS, skill_dir, {
             "resample_axis0": 3 * T, "resample_axis1": 3 * T, "rim_from_mask": 1 + T})
+        KEPT["V_law"] = rec["law"] = _law_scores_card(out, bench_rain(SIDE, n_frames=3 + T)[3:])
         del out
         side, E, Tp = BLEND_PARITY
         db, nwp, velocity = blend_inputs(side)
@@ -2402,35 +2447,51 @@ def _nccl_mesh():
     return mesh
 
 
-class _ShardedCapture:
-    """Keeps the last call's arguments of sharded_steps' matcher, mask and
-    warp while a forecast runs, and the time of the first noise draw (the
-    loop's start, after a synchronization)."""
+class _Capture:
+    """Keeps the last call's arguments of the functions ``names`` of
+    ``module`` while entered; the calls compute as they do without it."""
 
-    NAMES = ("_match_cdf_psum", "_dilated_mask_from_ext", "_warp_from_ext", "_spectral_white")
+    def __init__(self, module, names):
+        self.mod, self.names, self.args = module, names, {}
+
+    def _before(self, name):
+        pass
 
     def __enter__(self):
-        from pysteps_tpu_torch.parallel import sharded_steps
-
-        self.mod, self.args, self.loop_t0 = sharded_steps, {}, None
-        self.orig = {n: getattr(sharded_steps, n) for n in self.NAMES}
+        self.orig = {n: getattr(self.mod, n) for n in self.names}
 
         def wrap(n, f):
             def call(*args):
-                if n == "_spectral_white" and self.loop_t0 is None:
-                    torch.cuda.synchronize()
-                    self.loop_t0 = time.time()
+                self._before(n)
                 self.args[n] = args
                 return f(*args)
             return call
 
         for n, f in self.orig.items():
-            setattr(sharded_steps, n, wrap(n, f))
+            setattr(self.mod, n, wrap(n, f))
         return self
 
     def __exit__(self, *exc):
         for n, f in self.orig.items():
             setattr(self.mod, n, f)
+
+
+class _ShardedCapture(_Capture):
+    """Keeps the last call's arguments of sharded_steps' matcher, mask and
+    warp while a forecast runs, and the time of the first noise draw (the
+    loop's start, after a synchronization)."""
+
+    def __init__(self):
+        from pysteps_tpu_torch.parallel import sharded_steps
+
+        super().__init__(sharded_steps, ("_match_cdf_psum", "_dilated_mask_from_ext",
+                                         "_warp_from_ext", "_spectral_white"))
+        self.loop_t0 = None
+
+    def _before(self, name):
+        if name == "_spectral_white" and self.loop_t0 is None:
+            torch.cuda.synchronize()
+            self.loop_t0 = time.time()
 
 
 def _span_check(label, card, cpu, tol, scale=None):
@@ -2713,9 +2774,380 @@ def _distributed_verification(mesh, forecast, name, smi):
     emit(rec)
 
 
+# the mesh= of blending, the PCA EnKF and VET, on the same mesh:
+# V-y the spatially sharded blending loop at blend_512, V-ens blending's
+# member blocks at V's size, W-mesh the PCA EnKF at pca_enkf_256, O-mesh
+# VET at O's size.  V-y's captured matcher, rim mask and halo warp are held
+# card against CPU on their first members; its whole loop at (members,
+# side, leads) on the same handed draws within a share of the span
+BLEND_Y_CPU_MEMBERS = 16
+BLEND_Y_PARITY = (8, 128, 4)
+BLEND_Y_SPAN_TOL = 1e-3
+HALO_WARP_TOL = 1e-6  # of the extended block's largest magnitude
+# the sharded PCA fit against the SVD: components with variance (above
+# 1e-6 of the largest), up to sign, as tests/test_torch_parallel_blending.py
+# holds them, and the variances within 1e-4 of the largest (the Gram
+# matrix sums W's 45,379 rainy boxes in float32; the CPU test's 1e-5 is at
+# 1,000 features); the masked EnKF's correction with the mesh within
+# tests/test_torch_enkf.py's 1e-4 of its largest value
+PCA_COMP_TOL, PCA_VAR_RTOL, ENKF_MESH_TOL = 1e-4, 1e-4, 1e-4
+# VET with the mesh (the exact gather) against unsharded VET on the card's
+# exact branch at tests/test_parallel.py:222-241's case (64^2, sectors
+# (8, 4), 40 iterations), within its 0.1 px.  At O's size its flow is not
+# held to O's (the shift branch through K1): VET's Adam loop amplifies the
+# two warps' difference (0.158 px RMS and 0.464 px at most between the
+# port's two branches on the CPU at 512^2); it is held on
+# tests/test_motion.py's truth bound instead, as O is
+VET_MESH_SMALL = (64, ((8, 4), (8, 4)), 40)
+VET_MESH_PX = 0.1
+
+
+def _to_device(obj, dev):
+    """A copy of a blending params or state dataclass with every tensor on
+    ``dev``."""
+    import dataclasses
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _blend_sharded_components(cap, mesh):
+    """V-y's matcher (the binned resampled target), rim mask and halo warp
+    on the first members of their last lead's arguments, card against the
+    CPU as one block (``mesh=None``): the matcher and the rim mask
+    bit-equal, the halo warp within ``HALO_WARP_TOL`` of the block's
+    largest magnitude."""
+    n = BLEND_Y_CPU_MEMBERS
+    orig = cap.orig
+
+    def cpu(a):
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    def first(args):
+        return [a[:n] if isinstance(a, torch.Tensor) and a.ndim else a for a in args]
+
+    out = {"members": n}
+    margs = first(cap.args["_match_cdf_psum_binned"][:-1])
+    card = orig["_match_cdf_psum_binned"](*margs, mesh)
+    ref = orig["_match_cdf_psum_binned"](*map(cpu, margs), None)
+    out["match_cdf_psum_binned"] = _span_check("V-y matcher", card, ref, 0.0)
+    field, thr, kr, r, _ = cap.args["_dilated_mask_halo"]
+    out["rim_mask"] = _span_check(
+        "V-y rim mask", orig["_dilated_mask_halo"](field[:n], thr, kr, r, mesh),
+        orig["_dilated_mask_halo"](field[:n].cpu(), thr, kr, r, None), 0.0)
+    ext, disp, h, cval, _ = cap.args["_warp_from_ext"]
+    out["warp_from_ext"] = _span_check(
+        "V-y halo warp", orig["_warp_from_ext"](ext[:n], disp[:n], h, cval, mesh),
+        orig["_warp_from_ext"](ext[:n].cpu(), disp[:n].cpu(), h, cval, None), HALO_WARP_TOL,
+        float(ext[:n].abs().max()))
+    out["shape"], out["halo"] = list(field.shape), h
+    return out
+
+
+def _blend_scan_card_vs_cpu(mesh):
+    """The whole sharded blending loop at ``BLEND_Y_PARITY`` on the card
+    (the NCCL mesh) against the CPU (one block), from the same CPU-prepared
+    inputs and the same white spectra and picks handed in."""
+    from pysteps_tpu_torch.parallel import sharded_blending as sb
+
+    E, side, T = BLEND_Y_PARITY
+    db, nwp, velocity = blend_inputs(side)
+    with tempfile.TemporaryDirectory() as skill_dir:
+        inp = blend_mod.scan_inputs(db, nwp, velocity, velocity[None], T, 5.0, device="cpu",
+                                    **_blend_kw(E, skill_dir))
+    # the port's own draws (Hermitian where irfft2 needs it), made on the
+    # CPU once
+    gen = torch.Generator().manual_seed(11)
+    white = [fftgenerators._spectral_white(gen, (side, side), E) for _ in range(T)]
+    picks = [torch.rand((E, side * side), generator=gen) < 0.5 for _ in range(T)]
+
+    def run(params, state, m, dev):
+        w_it, p_it = (x.to(dev) for x in white), (x.to(dev) for x in picks)
+        draw, bern = sb._fft_noise_draw, sb._bernoulli
+        sb._fft_noise_draw = lambda gen, shape, batch, domain, full: next(w_it)
+        sb._bernoulli = lambda gen, p, shape: next(p_it)
+        try:
+            return sb.blending_scan_sharded(params, state, T, m, vmax_bound=inp.vmax_bound,
+                                            **inp.statics)
+        finally:
+            sb._fft_noise_draw, sb._bernoulli = draw, bern
+
+    dev = torch.device("cuda")
+    card = run(_to_device(inp.params, dev), _to_device(inp.state, dev), mesh, dev)
+    cpu = run(inp.params, inp.state, None, torch.device("cpu"))
+    span = float(cpu.max() - cpu.min())
+    return dict(_span_check("V-y loop", card, cpu, BLEND_Y_SPAN_TOL, span),
+                shape=[E, T, side, side])
+
+
+def _blend_sharded_path(mesh, name, smi):
+    """V-y: ``sharded_blending.blending_scan_sharded`` at V's size and
+    keywords (``blend_512``), driven with the arguments that
+    ``blending.steps.forecast`` prepares for its loop
+    (``blending.steps.scan_inputs``), once to warm up inside
+    :class:`_PathKernelInputs` (K1 at the halo-extended members (E, side +
+    2 halo, side) held bit-equal to its plain version) and :class:`_Capture`,
+    then timed, preparation included, with the launch counts set to 0 just
+    before and read just after: K1 once an axis a lead (the composite's
+    halo warp; the velocity is sampled by the exact gather, as JAX's), K4
+    once (the init mask; the lead's rim comes from max-pools, as JAX's).
+    Then its components and a small whole loop card against CPU, and its
+    law against V's."""
+    from pysteps_tpu_torch.parallel import sharded_blending as sb
+
+    E, side, T = BLEND_MEMBERS, SIDE, N_LEADS
+    db, nwp, velocity = blend_inputs(side)
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(db, device=dev), torch.as_tensor(nwp, device=dev),
+            torch.as_tensor(velocity, device=dev), torch.as_tensor(velocity[None], device=dev),
+            T, 5.0)
+    expected = {"resample_axis0": T, "resample_axis1": T, "rim_from_mask": 1}
+
+    def prepare_and_run(kw):
+        inp = blend_mod.scan_inputs(*args, **kw)
+        torch.cuda.synchronize()
+        t_loop = time.time()
+        out = sb.blending_scan_sharded(inp.params, inp.state, inp.int_steps, mesh,
+                                       vmax_bound=inp.vmax_bound, **inp.statics)
+        return inp, out, t_loop
+
+    with tempfile.TemporaryDirectory() as skill_dir:
+        kw = _blend_kw(E, skill_dir)
+        kernels = _PathKernelInputs("V-y")
+        with kernels, _Capture(sb, ("_match_cdf_psum_binned", "_dilated_mask_halo",
+                                    "_warp_from_ext")) as cap:
+            inp, out, _ = prepare_and_run(kw)
+            torch.cuda.synchronize()
+        del out
+        h = sb._halo(T, inp.vmax_bound, inp.statics["struct_radius"], inp.statics["mask_rim"],
+                     side)
+        block = (E, side + 2 * h, side)
+        for axis in (0, 1):
+            if (axis, block, block, h) not in kernels.k1:
+                raise AssertionError(f"V-y: no K1 launch on axis {axis} at {block}, bound {h}: "
+                                     f"{sorted(kernels.k1)}")
+        k1_rows = [r for r in kernels.rows if r["name"].startswith("K1") and
+                   tuple(r["shape"]) == block]
+        if len(k1_rows) != 2 or any(r["max_abs_err"] != 0.0 for r in k1_rows):
+            raise AssertionError(f"V-y: K1 at {block} is not bit-equal to its plain version: "
+                                 f"{k1_rows}")
+        del inp
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.time()
+        inp, out, t_loop = prepare_and_run(kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches("V-y", launches, expected)
+    if tuple(out.shape) != (E, T, side, side) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"V-y: output {tuple(out.shape)} not finite of its shape")
+    rec = {"phase": "path V-y", "method": "sharded_blending.blending_scan_sharded",
+           "shape": list(out.shape), "mesh": [1, 1, 1], "backend": "nccl",
+           "member_frames_per_s": E * T / wall, "wall_s": wall, "init_s": t_loop - t0,
+           "loop_s": wall - (t_loop - t0), "max_memory_allocated": peak,
+           "spread_per_lead": _spread(out, T), "launches": launches,
+           "expected_launches": expected, "halo": h, "kernels_at_path_shapes": kernels.rows}
+    law = _law_scores_card(out, bench_rain(side, n_frames=3 + T)[3:])
+    del out
+    ref = KEPT["V_law"]
+    rec["law_vs_V"] = {"V_y": law, "V": ref, "tol_rel": PARALLEL_LAW_TOL}
+    if any(abs(law[k] - ref[k]) > PARALLEL_LAW_TOL * abs(ref[k]) for k in ref):
+        raise AssertionError(f"V-y law: the sharded and unsharded blends differ: {rec['law_vs_V']}")
+    rec["components_card_vs_cpu"] = _blend_sharded_components(cap, mesh)
+    del cap
+    rec["loop_card_vs_cpu"] = _blend_scan_card_vs_cpu(mesh)
+    emit({**rec, "device": name, "nvidia_smi": smi})
+    return launches
+
+
+def _blend_ens_blocks_path(mesh, name, smi):
+    """V-ens: ``blending.get_method("steps")`` with ``mesh=`` at V's size as
+    each of 2 "ens" ranks in turn (``parallel_workers.as_ens_rank``), each
+    timed with the launch counts set to 0 just before and read just after:
+    a block launches V's kernels (3 K1 an axis a lead and 1 + T K4 from a
+    mask: its launches serve all its members).  The blocks put together
+    have the unsharded card forecast's NaN set and its values within
+    ``ENS_BLOCK_ATOL`` (every rank draws every member's noise and picks,
+    but cuFFT rounds a block's batch otherwise).  Returns block 0's
+    counts."""
+    E, side, T = BLEND_MEMBERS, SIDE, N_LEADS
+    db, nwp, velocity = blend_inputs(side)
+    dev = torch.device("cuda")
+    args = (torch.as_tensor(db, device=dev), torch.as_tensor(nwp, device=dev),
+            torch.as_tensor(velocity, device=dev), torch.as_tensor(velocity[None], device=dev),
+            T, 5.0)
+    f = blending.get_method("steps")
+    expected = {"resample_axis0": 3 * T, "resample_axis1": 3 * T, "rim_from_mask": 1 + T}
+    blocks, recs = [], []
+    with tempfile.TemporaryDirectory() as skill_dir:
+        kw = _blend_kw(E, skill_dir)
+        whole = f(*args, **kw)
+        for block in ((0, E // 2), (E // 2, E)):
+            with parallel_workers.as_ens_rank(block):
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                t0 = time.time()
+                out = f(*args, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            launches = dict(_kernels.LAUNCHES)
+            _check_launches(f"V-ens block {block}", launches, expected)
+            if tuple(out.shape) != (block[1] - block[0], T, side, side):
+                raise AssertionError(f"V-ens block {block}: output {tuple(out.shape)}")
+            blocks.append(out)
+            recs.append({"block": list(block), "wall_s": wall,
+                         "member_frames_per_s": (block[1] - block[0]) * T / wall,
+                         "launches": launches, "expected_launches": expected})
+    joined = torch.cat(blocks)
+    diff = torch.nan_to_num(joined - whole).abs()
+    against = {"max_abs_diff": float(diff.max()), "mean_abs_diff": float(diff.mean()),
+               "bit_equal_share": float((diff == 0).float().mean()), "atol": ENS_BLOCK_ATOL}
+    if not torch.equal(torch.isnan(whole), torch.isnan(joined)) or \
+            against["max_abs_diff"] > ENS_BLOCK_ATOL:
+        raise AssertionError(f"V-ens: the blocks differ from the unsharded forecast: {against}")
+    emit({"phase": "path V-ens", "method": "blending.steps", "shape": list(joined.shape),
+          "ens_ranks": 2, "blocks": recs, "against_unsharded": against, "device": name,
+          "nvidia_smi": smi})
+    return recs[0]["launches"]
+
+
+def _pca_fit_against_svd(Xc, mesh):
+    """``utils.pca._fit_pca_sharded`` on the mesh against the SVD of the
+    same centred matrix on the card: the variances, and every component
+    with variance up to its sign (the last component of a centred
+    ensemble has none and is rounding in both)."""
+    from pysteps_tpu_torch.utils import pca
+
+    vt, var = pca._fit_pca_sharded(Xc, mesh)
+    _, S, vt_svd = torch.linalg.svd(Xc, full_matrices=False)
+    var_svd = S**2 / (Xc.shape[0] - 1)
+    keep = var_svd > 1e-6 * var_svd.max()
+    sign = torch.sign((vt * vt_svd).sum(dim=1, keepdim=True))
+    comp_err = float((vt * sign - vt_svd)[keep].abs().max())
+    var_err = float(((var - var_svd).abs() / var_svd.max()).max())
+    rec = {"shape": list(Xc.shape), "components_with_variance": int(keep.sum()),
+           "max_abs_diff_components": comp_err, "tol": PCA_COMP_TOL,
+           "max_var_diff_over_largest": var_err, "var_rtol": PCA_VAR_RTOL}
+    if comp_err > PCA_COMP_TOL or var_err > PCA_VAR_RTOL:
+        raise AssertionError(f"W-mesh: the sharded PCA fit and the SVD differ: {rec}")
+    return rec
+
+
+def _enkf_mesh_path(mesh, name, smi):
+    """W-mesh: the PCA EnKF at ``pca_enkf_256`` through its nowcaster with
+    ``mesh=`` (the combination loop runs replicated, so it launches W's
+    kernels, 3 K1 an axis a nowcast cycle), timed with the launch counts
+    set to 0 just before and read just after, against W's forecast without
+    the mesh; the sharded PCA fit (one shard) against the SVD on one
+    correction's stacked ensembles (the NWP ensemble's first lead as the
+    background, its second as the observation, their rainy boxes), and
+    ``MaskedEnKF.correct_step`` with the mesh against it without."""
+    from pysteps_tpu_torch.blending.ens_kalman_filter_methods import MaskedEnKF
+
+    dev = torch.device("cuda")
+    T = N_LEADS
+    obs, obs_ts, nwp, nwp_ts, velocity, t0 = _enkf_inputs(dev)
+    cfg = pca_enkf_mod.EnKFCombinationConfig(
+        n_ens_members=ENKF_MEMBERS, n_cascade_levels=ENKF_LEVELS, precip_threshold=-10.0,
+        norain_threshold=0.01, seed=43)
+
+    def caster(m):
+        return pca_enkf_mod.EnKFCombinationNowcaster(
+            obs, nwp, velocity, 5 * T, enkf_combination_config=cfg, obs_timestamps=obs_ts,
+            nwp_timestamps=nwp_ts, issuetime=t0, measure_time=True, mesh=m)
+
+    plain, _, _ = caster(None).compute_forecast()
+    run = caster(mesh)
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t_start = time.time()
+    out, init_s, loop_s = run.compute_forecast()
+    torch.cuda.synchronize()
+    wall = time.time() - t_start
+    launches = dict(_kernels.LAUNCHES)
+    cycles = T - len(ENKF_FULL_NWP_LEADS)
+    _check_launches("W-mesh", launches, {"resample_axis0": 3 * cycles,
+                                         "resample_axis1": 3 * cycles})
+    if run.full_nwp_leads != ENKF_FULL_NWP_LEADS:
+        raise AssertionError(f"W-mesh: the full NWP at {run.full_nwp_leads}")
+    rec = {"phase": "path W-mesh", "method": "blending.pca_enkf",
+           "shape": list(out.shape), "mesh": [1, 1, 1], "backend": "nccl", "wall_s": wall,
+           "init_s": init_s, "loop_s": loop_s, "member_frames_per_s": ENKF_MEMBERS * T / wall,
+           "launches": launches, "against_W": _nanclose("W-mesh", out, plain, 1e-4)}
+    del out, plain, run
+    bg, ob = nwp[:, 1], nwp[:, 2]
+    X = torch.cat([bg.reshape(ENKF_MEMBERS, -1), ob.reshape(ENKF_MEMBERS, -1)])
+    rainy = (X >= -10.0).any(dim=0)
+    Xr = X[:, rainy]
+    rec["pca_fit_vs_svd"] = _pca_fit_against_svd(Xr - Xr.mean(dim=0), mesh)
+
+    class Cfg:
+        n_ens_members, precip_threshold, norain_threshold = ENKF_MEMBERS, -10.0, 0.01
+
+    def correct(m):
+        params = type("P", (), {"combination_kwargs": {"mesh": m,
+                                                       "iterative_prob_matching": False}})()
+        return MaskedEnKF(Cfg(), params).correct_step(bg, ob)[0]
+
+    card, ref = correct(mesh), correct(None)
+    err = float((card - ref).abs().max() / ref.abs().max())
+    rec["masked_enkf_mesh_vs_svd"] = {"max_abs_diff_over_max": err, "tol": ENKF_MESH_TOL}
+    if not err <= ENKF_MESH_TOL:
+        raise AssertionError(f"W-mesh: MaskedEnKF with the mesh differs: {err}")
+    emit({**rec, "device": name, "nvidia_smi": smi})
+    return launches
+
+
+def _vet_mesh_path(mesh, name, smi):
+    """O-mesh: VET at O's size and inputs with ``mesh=``, timed once (no
+    warm-up) with the launch counts set to 0 just before and read just
+    after: no K1, by the JAX package's design (each row block warps the
+    replicated template by the exact gather).  Its flow beside O's (the
+    card's shift branch through K1) and both against the true motion;
+    ``tests/test_parallel.py``'s case with the mesh against unsharded VET
+    on the card's exact branch, within its 0.1 px at every pixel; and
+    ``tests/test_motion.py``'s case with the mesh under its truth bound."""
+    dev = torch.device("cuda")
+    frames, _ = bench_inputs(SIDE, n_frames=MOTION_PATHS["O"][1])
+    x = torch.as_tensor(frames, device=dev)
+    f = motion.get_method("vet")
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t0 = time.time()
+    flow = f(x, verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_kernels.LAUNCHES)
+    _check_launches("O-mesh", launches, {})
+    diff = (flow - KEPT["O_flow"]).abs().double()
+    against_o = {"max_abs_diff_px": float(diff.max()),
+                 "rms_diff_px": float(torch.sqrt(torch.mean(diff**2))),
+                 "rel_rmse_vs_truth_O": _rel_rmse(KEPT["O_flow"])}
+    side, sectors, maxiter = VET_MESH_SMALL
+    small = make_synthetic_sequence(n_frames=2, shape=(side, side), velocity=(2.0, 1.0), seed=4)
+    small = torch.as_tensor(np.where(small >= 0.1, 10 * np.log10(np.maximum(small, 0.1)),
+                                     -15.0).astype(np.float32), device=dev)
+    kw = dict(sectors=sectors, options={"maxiter": maxiter}, verbose=False)
+    small_diff = float((f(small, mesh=mesh, **kw) - f(small, max_disp=None, **kw)).abs().max())
+    if small_diff > VET_MESH_PX:
+        raise AssertionError(f"O-mesh: sharded and unsharded VET differ by {small_diff} px")
+    emit({"phase": "path O-mesh", "method": "vet", "shape": [3, SIDE, SIDE], "mesh": [1, 1, 1],
+          "backend": "nccl", "wall_s": wall, "retrievals_per_s": 1.0 / wall,
+          "rel_rmse_vs_truth": _rel_rmse(flow), "launches": launches, "beside_O": against_o,
+          "truth_test_motion": _truth_on_card("vet", mesh=mesh),
+          "small_case_vs_unsharded": {"max_abs_diff_px": small_diff, "tol_px": VET_MESH_PX,
+                                      "side": side, "maxiter": maxiter},
+          "device": name, "nvidia_smi": smi})
+    return launches
+
+
 def phase_parallel(name, smi, forecast):
-    """Paths Y, Y' and Z and the distributed verification (see the module
-    docstring); the process group is destroyed at the end, and on failure."""
+    """Paths Y, Y', A-ens and Z, the distributed verification and paths V-y,
+    V-ens, W-mesh and O-mesh (see the module docstring); the process group
+    is destroyed at the end, and on failure."""
     import torch.distributed as dist
 
     t0 = time.time()
@@ -2743,10 +3175,41 @@ def phase_parallel(name, smi, forecast):
         by_path["A-ens"] = _ens_blocks_path(mesh, name, smi)
         by_path["Z"] = _rainfarm_path(name, smi)
         _distributed_verification(mesh, forecast, name, smi)
+        by_path["V-y"] = _blend_sharded_path(mesh, name, smi)
+        torch.cuda.empty_cache()
+        by_path["V-ens"] = _blend_ens_blocks_path(mesh, name, smi)
+        by_path["W-mesh"] = _enkf_mesh_path(mesh, name, smi)
+        by_path["O-mesh"] = _vet_mesh_path(mesh, name, smi)
     finally:
         dist.destroy_process_group()
     emit({"phase": "parallel", "seconds": time.time() - t0, "device": name, "nvidia_smi": smi})
     return by_path
+
+
+def phase_native(name, smi):
+    """native: the port's C++ decoders (``pysteps_tpu_torch/native``) built
+    with the host's ``g++`` into ``build/`` and loaded; ``radolan_decode``
+    of one synthetic 512^2 frame against the NumPy decode of the same
+    bytes (the low 12 bits times the precision in float32, bit 13 no
+    data, rows flipped), bit for bit."""
+    from pysteps_tpu_torch import native
+
+    t0 = time.time()
+    lib = native.get_lib()
+    build_s = time.time() - t0
+    if lib is None:
+        raise AssertionError("native: the decoder library did not build or load")
+    raw = np.random.RandomState(0).randint(0, 2**16, size=SIDE * SIDE).astype(np.uint16)
+    out = native.radolan_decode(raw, SIDE, 0.1)
+    vals = (raw & 0x0FFF).astype(np.float32) * np.float32(0.1)
+    ref = np.where(raw & 0x2000, np.float32(np.nan), vals).reshape(SIDE, SIDE)[::-1]
+    if out is None or not np.array_equal(out.view(np.uint32), ref.view(np.uint32)):
+        raise AssertionError("native: radolan_decode differs from the NumPy decode")
+    emit({"phase": "native", "library": os.path.relpath(lib._name, ROOT), "build_s": build_s,
+          "omp_threads": lib.omp_thread_count(), "radolan_decode": {
+              "shape": [SIDE, SIDE], "bit_equal_to_numpy": True,
+              "no_data_share": float(np.isnan(ref).mean())},
+          "device": name, "nvidia_smi": smi})
 
 
 def _leaves(x):
@@ -2777,6 +3240,7 @@ def main():
     by_path.update(phase_linda(name, smi))
     by_path.update(phase_blending(name, smi))
     by_path.update(phase_parallel(name, smi, captured["forecast_last_lead"]))
+    phase_native(name, smi)
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

@@ -14,6 +14,7 @@ cancel in every product the update forms.
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from pysteps_tpu_torch._device import as_device_tensor
 from pysteps_tpu_torch.nowcasts.utils import to_numpy
@@ -264,14 +265,17 @@ class EnsembleKalmanFilter:
 class MaskedEnKF(EnsembleKalmanFilter):
     """EnKF with precipitation masking and PCA reduction (reference:
     ens_kalman_filter_methods.py:401).  ``mesh`` in the combination
-    kwargs is not ported (``NotImplementedError``)."""
+    kwargs (or the params) shards the PCA fit of :meth:`correct_step`
+    (``utils.pca._fit_pca_sharded``); the rest of the filter runs
+    replicated on every rank."""
 
     def __init__(self, config, params):
         super().__init__(config, params)
         kwargs = getattr(params, "combination_kwargs", {}) or {}
-        if kwargs.get("mesh") is not None or getattr(params, "mesh", None) is not None:
-            raise NotImplementedError(
-                "mesh is not ported yet (ROADMAP A12b: the sharded EnKF)")
+        mesh = kwargs.get("mesh")
+        self._mesh = mesh if mesh is not None else getattr(params, "mesh", None)
+        if self._mesh is not None and not isinstance(self._mesh, DeviceMesh):
+            raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
         self._iterative_prob_matching = kwargs.get("iterative_prob_matching", True)
         self._inflation_factor_bg = kwargs.get("inflation_factor_bg", 1.0)
         self._inflation_factor_obs = kwargs.get("inflation_factor_obs", 1.0)
@@ -322,7 +326,7 @@ class MaskedEnKF(EnsembleKalmanFilter):
             return obs, resampled_forecast
 
         stacked_pc, pca_params = pca_transform(stacked, get_params=True,
-                                               n_components=stacked.shape[0])
+                                               n_components=stacked.shape[0], mesh=self._mesh)
         stacked_lien_pc = pca_transform(stacked, mask=torch.as_tensor(idx_lien, device=bg.device),
                                         pca_params=pca_params)
 

@@ -20,7 +20,9 @@ decomposition, all members in one launch an axis); on the CPU the exact
 gather.  Randomness (the noise pool, the members' picks from it, the
 resampled targets) comes from one ``torch.Generator`` seeded from
 ``seed``; the draws differ from the JAX package's, their law does not.
-Not ported (it raises ``NotImplementedError``): ``mesh``.
+``mesh`` reaches ``MaskedEnKF`` through the combination kwargs, as in the
+JAX package (its class API shards the PCA fit); the combination loop runs
+replicated on every rank.
 """
 
 import dataclasses
@@ -30,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from pysteps_tpu_torch import cascade, noise
 from pysteps_tpu_torch._device import resolve_device
@@ -321,10 +324,12 @@ class EnKFCombinationNowcaster:
                  obs_timestamps=None, nwp_timestamps=None, issuetime=None,
                  precip_mask_dilation=1, n_noise_fields=30,
                  smooth_radar_mask_range=0, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported yet (ROADMAP A12b: the sharded PCA EnKF)")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
         self.device = resolve_device(device, obs_precip, nwp_precip, velocity)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a forecast on {self.device}")
+        self.mesh = mesh
         self.obs_precip = nowcast_utils.to_numpy(obs_precip).astype(np.float32)
         # an NWP stack already on the device stays there
         if isinstance(nwp_precip, torch.Tensor):
@@ -421,6 +426,8 @@ class EnKFCombinationNowcaster:
             n_nwp_members=n_nwp,
             n_timesteps=self.nwp_precip.shape[1],
         )
+        if self.mesh is not None:
+            params.combination_kwargs.setdefault("mesh", self.mesh)
         enkf = (MaskedEnKF(cfg, params) if cfg.enkf_method == "masked_enkf"
                 else EnsembleKalmanFilter(cfg, params))
 

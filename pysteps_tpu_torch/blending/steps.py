@@ -36,8 +36,12 @@ chunk of members at a time into one output buffer, so that only a chunk's
 state is live.  Unlike the JAX package, the port chunks whenever
 ``member_chunk`` divides the member count: the JAX package's size
 threshold (``PYSTEPS_TPU_OUTER_CHUNK_BYTES``, 12.5 GB) sizes the state
-against a TPU v5e's 16 GB of HBM and is not carried over.  Not ported (it
-raises ``NotImplementedError``): ``mesh``.
+against a TPU v5e's 16 GB of HBM and is not carried over.
+
+``mesh`` routes as in the JAX package: members over "ens" (every rank
+makes every member's draws and keeps its block's), or, where "y" has more
+than one rank, the row-sharded loop of
+``parallel/sharded_blending.py``.
 """
 
 import dataclasses
@@ -46,6 +50,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from pysteps_tpu_torch import cascade, noise
 from pysteps_tpu_torch._device import as_device_tensor, resolve_device
@@ -72,6 +77,7 @@ from pysteps_tpu_torch.nowcasts.steps import (
     _sync,
 )
 from pysteps_tpu_torch.ops.warp import warp, warp_shifted
+from pysteps_tpu_torch.parallel.mesh import all_gather_cat, axis_size, member_block
 from pysteps_tpu_torch.postprocessing import probmatching
 from pysteps_tpu_torch.utils import tapering
 from pysteps_tpu_torch.utils.arrays import _nanmin
@@ -371,8 +377,8 @@ def params_from_numpy(arrays, device, seed):
 def _blending_scan(
     params, state, int_steps, mask_method, probmatching_method, resample_distribution,
     mask_rim, struct_radius, precip_thr, max_disp=None, vel_pert=False, p_par=None,
-    p_perp=None, vsf=1.0, timestep_min=1.0, use_noise=True, members=None, sorts=None,
-    out=None, out_dtype="float32", callback=None,
+    p_perp=None, vsf=1.0, timestep_min=1.0, use_noise=True, members=None, draw_all=False,
+    sorts=None, out=None, out_dtype="float32", callback=None,
 ):
     """The blended forecast loop over ``int_steps`` leads for the members
     ``members`` (a slice; all by default).  Returns their member-major
@@ -385,10 +391,14 @@ def _blending_scan(
     gather) chooses the path; the device of the tensors chooses between
     the kernels and their plain versions.  ``sorts`` are the
     :func:`_presort_targets` of the resampled CDF match, made here when
-    None."""
+    None.  With ``draw_all`` the noise and the picks are drawn for every
+    member of ``params`` and ``members``' draws kept, so that a block of
+    members equals the same members of the whole ensemble."""
     members = members if members is not None else slice(None)
     mm = params.member_model[members]
     E = mm.shape[0]
+    mm_draw, keep = (params.member_model, members) if draw_all else (mm, None)
+    E_draw = mm_draw.shape[0]
     k_levels, p, m, n = state.cascades.shape
     dev = state.cascades.device
     gen = state.generator
@@ -436,7 +446,8 @@ def _blending_scan(
             ext_lags = _ar_step_lags(ext_lags, phi)
         if use_noise:
             eps = fftgenerators._generate_fft_noise(
-                gen, params.noise_filter, (m, n), E, domain="spatial", standardize=False)
+                gen, params.noise_filter, (m, n), E_draw, domain="spatial", standardize=False,
+                keep=keep)
             eps_levels, _, _ = decompose_core(eps, params.weights_2d, normalize=True)
             eps_levels = eps_levels * params.noise_std_coeffs[:, None, None]
             noise_lags = _ar_step_lags(noise_lags, phi, eps=eps_levels)
@@ -513,9 +524,12 @@ def _blending_scan(
             if resample_distribution:
                 # binomial mix of the radar and NWP intensity distributions,
                 # weighted by the current extrapolation skill
-                s0, s1 = w[:, 0].sum(dim=1), w[:, 1].sum(dim=1)
+                w_d = w if keep is None else params.weights[t].index_select(0, mm_draw)
+                s0, s1 = w_d[:, 0].sum(dim=1), w_d[:, 1].sum(dim=1)
                 p_radar = s0 / torch.clamp(s0 + s1, min=1e-12)
-                pick = probmatching._bernoulli(gen, p_radar[:, None], (E, m * n))
+                pick = probmatching._bernoulli(gen, p_radar[:, None], (E_draw, m * n))
+                if keep is not None:
+                    pick = pick[keep]
                 target = torch.where(pick, rsort, nsorts[t].index_select(0, mm))
                 field = _match_cdf_targets(field, target)
             else:
@@ -537,42 +551,69 @@ def _blending_scan(
     return None if callback is not None else out
 
 
-def _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf, shape):
-    """The static displacement bound of the card's path (the JAX package's
-    TPU branch): the largest blended speed over the forecast, with a
-    4-sigma margin for the BPS perturbation, plus 2 px, at most 48 and at
-    most a third of the grid (else None)."""
+def _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf):
+    """The largest blended speed over the forecast plus a 4-sigma margin
+    for the BPS perturbation (px a lead)."""
     vmax = float(velocity_blend.abs().max()) if velocity_blend.numel() else 0.0
     if vel_pert:
         t_last = int_steps * (timestep or 1.0)
         g_par_l = abs(p_par[0] * t_last ** p_par[1] + p_par[2])
         g_perp_l = abs(p_perp[0] * t_last ** p_perp[1] + p_perp[2])
-        pert_margin = 4.0 * max(g_par_l, g_perp_l) / max(vsf, 1e-6)
-    else:
-        pert_margin = 0.0
-    max_disp = max(int(np.ceil(int_steps * (vmax + pert_margin))) + 2, 2)
+        return vmax + 4.0 * max(g_par_l, g_perp_l) / max(vsf, 1e-6)
+    return vmax
+
+
+def _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf, shape):
+    """The static displacement bound of the card's path (the JAX package's
+    TPU branch): the largest blended speed over the forecast, with a
+    4-sigma margin for the BPS perturbation, plus 2 px, at most 48 and at
+    most a third of the grid (else None)."""
+    speed = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
+    max_disp = max(int(np.ceil(int_steps * speed)) + 2, 2)
     max_disp = min(max_disp, _MAX_DISP)
     if max_disp > min(shape) // 3:
         return None
     return max_disp
 
 
-def forecast(
+@dataclasses.dataclass
+class ScanInputs:
+    """What the forecast prepares for its loop: the arguments of
+    ``_blending_scan`` and of ``parallel.sharded_blending.
+    blending_scan_sharded`` (``params``, ``state``, ``int_steps`` and the
+    keyword ``statics``), and ``vmax_bound``, the blended velocity's
+    largest speed plus the BPS margin, which sizes the sharded loop's
+    halo."""
+
+    params: StepsBlendingParams
+    state: StepsBlendingState
+    int_steps: int
+    statics: dict
+    vmax_bound: float
+
+
+def _leads(timesteps):
+    """(int_steps, subsel): the loop's lead count, and the list of
+    requested (possibly fractional) leads or None for an int."""
+    if isinstance(timesteps, int):
+        return timesteps, None
+    subsel = list(timesteps)
+    return int(np.ceil(max(subsel))), subsel
+
+
+def scan_inputs(
     precip,
     precip_models,
     velocity,
     velocity_models,
     timesteps,
     timestep,
-    issuetime=None,
     n_ens_members=24,
     n_cascade_levels=6,
     blend_nwp_members=False,
     precip_thr=None,
     norain_thr=0.0,
     kmperpixel=None,
-    extrap_method="semilagrangian",
-    decomp_method="fft",
     bandpass_filter_method="gaussian",
     noise_method="nonparametric",
     noise_stddev_adj=None,
@@ -584,12 +625,7 @@ def forecast(
     mask_method="incremental",
     resample_distribution=True,
     smooth_radar_mask_range=0,
-    callback=None,
-    return_output=True,
     seed=None,
-    num_workers=1,
-    fft_method="numpy",
-    domain="spatial",
     outdir_path_skill=None,
     extrap_kwargs=None,
     filter_kwargs=None,
@@ -597,46 +633,14 @@ def forecast(
     vel_pert_kwargs=None,
     clim_kwargs=None,
     mask_kwargs=None,
-    measure_time=False,
     precip_nowcast=None,
-    nowcasting_method="steps",
     timestep_start_full_nwp_weight=None,
-    mesh=None,
-    output_dtype="float32",
-    member_chunk=None,
     device=None,
 ):
-    """STEPS blending forecast with the JAX package's signature plus
-    ``device``.
-
-    precip: (ar_order+1, m, n) radar fields (transformed units).
-    precip_models: (n_models, T+1, m, n) raw NWP fields in the same units,
-    or (n_models, m, n) static fields repeated.  velocity_models:
-    (n_models, 2, m, n), or (n_models, T+1, 2, m, n) time-varying.
-    precip_nowcast: an external nowcast ensemble (n_ens_members, T, m, n)
-    used as the extrapolation component (``nowcasting_method=
-    "external_nowcast"`` requires it).  timestep_start_full_nwp_weight:
-    the lead index after which the weights move linearly to full NWP
-    weight.  Returns an (n_ens_members, T, m, n) tensor on ``device``
-    (CUDA unless the caller asks for the CPU or passes CPU tensors;
-    ``RuntimeError`` when CUDA is needed and absent).  ``callback`` gets
-    each lead's (E, m, n) frames as host numpy arrays; with
-    ``return_output=False`` (and an int ``timesteps``) they stream in
-    chunks of at most 4 leads and the forecast returns None."""
-    if nowcasting_method not in ("steps", "external_nowcast"):
-        raise ValueError(
-            f"unknown nowcasting_method {nowcasting_method}; "
-            "must be 'steps' or 'external_nowcast'"
-        )
-    if nowcasting_method == "external_nowcast" and precip_nowcast is None:
-        raise ValueError("nowcasting_method='external_nowcast' requires precip_nowcast")
-    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight < 0:
-        raise ValueError("timestep_start_full_nwp_weight cannot be smaller than zero")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP A12b: parallel/sharded_blending)")
+    """The loop's inputs as :func:`forecast` prepares them from its
+    arguments of the same names (a :class:`ScanInputs` on ``device``), or
+    None where neither the radar nor the NWP fields rain."""
     device = resolve_device(device, precip, precip_models, velocity, velocity_models)
-    t0 = time.time()
     host = nowcast_utils.to_numpy
     precip = host(precip).astype(np.float32)
     precip_models = host(precip_models).astype(np.float32)
@@ -647,20 +651,7 @@ def forecast(
     noise_kwargs = dict(noise_kwargs or {})
     clim_kwargs = dict(clim_kwargs or {})
     filter_kwargs = filter_kwargs or {}
-
-    if precip_thr is None:
-        raise ValueError("precip_thr required")
-    if isinstance(timesteps, int):
-        int_steps = timesteps
-        subsel = None
-    else:
-        subsel = list(timesteps)
-        int_steps = int(np.ceil(max(subsel)))
-    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight >= int_steps:
-        raise ValueError(
-            "timestep_start_full_nwp_weight cannot be the same or larger "
-            "than the total number of timesteps in this forecast"
-        )
+    int_steps, _ = _leads(timesteps)
 
     if precip_models.ndim == 3:
         precip_models = np.repeat(precip_models[:, None], int_steps + 1, axis=1)
@@ -673,10 +664,7 @@ def forecast(
     zero_radar = check_norain(precip, precip_thr, norain_thr, None, printmsg=False)
     zero_nwp = check_norain(precip_models, precip_thr, norain_thr, None, printmsg=False)
     if zero_radar and zero_nwp:
-        return nowcast_utils.zero_precipitation_forecast(
-            n_ens_members, timesteps, precip, device, callback, return_output,
-            measure_time, t0,
-        )
+        return None
 
     precip = precip[-(ar_order + 1):]
     domain_mask = ~np.isfinite(precip[-1])
@@ -895,7 +883,6 @@ def forecast(
         cascades=window.to(torch.float32), noise_cascades=None, precip_mask=mask_prec_init,
         generator=generator, eps_par=eps_par, eps_perp=eps_perp,
     )
-    del nwp_levels, nwp_means_all, nwp_sigmas_all, cascades_full, precip_aligned
     statics = dict(
         mask_method=mask_method, probmatching_method=probmatching_method,
         resample_distribution=bool(resample_distribution), mask_rim=mask_rim,
@@ -903,14 +890,151 @@ def forecast(
         vel_pert=vel_pert, p_par=p_par, p_perp=p_perp, vsf=vsf,
         timestep_min=float(timestep) if timestep else 1.0, use_noise=noise_method is not None,
     )
+    vmax_bound = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
+    return ScanInputs(params, state, int_steps, statics, vmax_bound)
+
+
+def forecast(
+    precip,
+    precip_models,
+    velocity,
+    velocity_models,
+    timesteps,
+    timestep,
+    issuetime=None,
+    n_ens_members=24,
+    n_cascade_levels=6,
+    blend_nwp_members=False,
+    precip_thr=None,
+    norain_thr=0.0,
+    kmperpixel=None,
+    extrap_method="semilagrangian",
+    decomp_method="fft",
+    bandpass_filter_method="gaussian",
+    noise_method="nonparametric",
+    noise_stddev_adj=None,
+    ar_order=2,
+    vel_pert_method=None,
+    weights_method="bps",
+    conditional=False,
+    probmatching_method="cdf",
+    mask_method="incremental",
+    resample_distribution=True,
+    smooth_radar_mask_range=0,
+    callback=None,
+    return_output=True,
+    seed=None,
+    num_workers=1,
+    fft_method="numpy",
+    domain="spatial",
+    outdir_path_skill=None,
+    extrap_kwargs=None,
+    filter_kwargs=None,
+    noise_kwargs=None,
+    vel_pert_kwargs=None,
+    clim_kwargs=None,
+    mask_kwargs=None,
+    measure_time=False,
+    precip_nowcast=None,
+    nowcasting_method="steps",
+    timestep_start_full_nwp_weight=None,
+    mesh=None,
+    output_dtype="float32",
+    member_chunk=None,
+    device=None,
+):
+    """STEPS blending forecast with the JAX package's signature plus
+    ``device``.
+
+    precip: (ar_order+1, m, n) radar fields (transformed units).
+    precip_models: (n_models, T+1, m, n) raw NWP fields in the same units,
+    or (n_models, m, n) static fields repeated.  velocity_models:
+    (n_models, 2, m, n), or (n_models, T+1, 2, m, n) time-varying.
+    precip_nowcast: an external nowcast ensemble (n_ens_members, T, m, n)
+    used as the extrapolation component (``nowcasting_method=
+    "external_nowcast"`` requires it).  timestep_start_full_nwp_weight:
+    the lead index after which the weights move linearly to full NWP
+    weight.  Returns an (n_ens_members, T, m, n) tensor on ``device``
+    (CUDA unless the caller asks for the CPU or passes CPU tensors;
+    ``RuntimeError`` when CUDA is needed and absent).  ``callback`` gets
+    each lead's (E, m, n) frames as host numpy arrays; with
+    ``return_output=False`` (and an int ``timesteps``) they stream in
+    chunks of at most 4 leads and the forecast returns None.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh of the forecast's device type;
+    every rank calls the forecast with the same inputs) routes as the JAX
+    package does.  Where its "y" dimension has one rank, the members split
+    over "ens" when it has more than one rank and divides the member
+    count: a rank draws every member's noise and picks and keeps its
+    block's, so the result equals the unsharded forecast, and one
+    all-gather returns every member to every rank (``member_chunk`` does
+    not apply then, and the callback gets the gathered frames).  Where "y"
+    has more than one rank, the loop runs row-sharded through
+    ``parallel.sharded_blending.blending_scan_sharded`` (no external
+    nowcast, no ``member_chunk``; the callback gets the frames after the
+    loop)."""
+    if nowcasting_method not in ("steps", "external_nowcast"):
+        raise ValueError(
+            f"unknown nowcasting_method {nowcasting_method}; "
+            "must be 'steps' or 'external_nowcast'"
+        )
+    if nowcasting_method == "external_nowcast" and precip_nowcast is None:
+        raise ValueError("nowcasting_method='external_nowcast' requires precip_nowcast")
+    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight < 0:
+        raise ValueError("timestep_start_full_nwp_weight cannot be smaller than zero")
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
+    device = resolve_device(device, precip, precip_models, velocity, velocity_models)
+    if mesh is not None and mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run a forecast on {device}")
+    t0 = time.time()
+    if precip_thr is None:
+        raise ValueError("precip_thr required")
+    int_steps, subsel = _leads(timesteps)
+    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight >= int_steps:
+        raise ValueError(
+            "timestep_start_full_nwp_weight cannot be the same or larger "
+            "than the total number of timesteps in this forecast"
+        )
+
+    inputs = scan_inputs(
+        precip, precip_models, velocity, velocity_models, timesteps, timestep,
+        n_ens_members=n_ens_members, n_cascade_levels=n_cascade_levels,
+        blend_nwp_members=blend_nwp_members, precip_thr=precip_thr, norain_thr=norain_thr,
+        kmperpixel=kmperpixel, bandpass_filter_method=bandpass_filter_method,
+        noise_method=noise_method, noise_stddev_adj=noise_stddev_adj, ar_order=ar_order,
+        vel_pert_method=vel_pert_method, weights_method=weights_method,
+        conditional=conditional, probmatching_method=probmatching_method,
+        mask_method=mask_method, resample_distribution=resample_distribution,
+        smooth_radar_mask_range=smooth_radar_mask_range, seed=seed,
+        outdir_path_skill=outdir_path_skill, extrap_kwargs=extrap_kwargs,
+        filter_kwargs=filter_kwargs, noise_kwargs=noise_kwargs,
+        vel_pert_kwargs=vel_pert_kwargs, clim_kwargs=clim_kwargs, mask_kwargs=mask_kwargs,
+        precip_nowcast=precip_nowcast,
+        timestep_start_full_nwp_weight=timestep_start_full_nwp_weight, device=device,
+    )
+    if inputs is None:
+        return nowcast_utils.zero_precipitation_forecast(
+            n_ens_members, timesteps, nowcast_utils.to_numpy(precip), device, callback,
+            return_output, measure_time, t0,
+        )
+    params, state, statics = inputs.params, inputs.state, inputs.statics
+    E = n_ens_members
+    m, n = state.cascades.shape[-2:]
+    spatial = mesh is not None and axis_size(mesh, "y") > 1
+    block = None
+    if mesh is not None and not spatial:
+        ens = axis_size(mesh, "ens")
+        block = member_block(E, mesh) if ens > 1 and E % ens == 0 else None
     sorts = None
-    if probmatching_method == "cdf" and resample_distribution:
+    if probmatching_method == "cdf" and resample_distribution and not spatial:
         sorts = _presort_targets(params.precip_last, params.nwp_fields, params.precip_min)
 
     _sync(device)
     init_time = time.time() - t0
     t1 = time.time()
-    if callback is not None and not return_output and subsel is None:
+    if callback is not None and not return_output and subsel is None and block is None \
+            and not spatial:
         # the streaming contract: chunks of at most 4 leads reach the
         # callback and leave the device
         _blending_scan(params, state, int_steps, sorts=sorts, callback=callback,
@@ -921,12 +1045,24 @@ def forecast(
             return None, init_time, loop_time
         return None
 
-    E = n_ens_members
-    out = torch.empty((E, int_steps, m, n), dtype=getattr(torch, output_dtype), device=device)
-    chunk = member_chunk if member_chunk and E % member_chunk == 0 and subsel is None else E
-    for c0 in range(0, E, chunk):
-        _blending_scan(params, state, int_steps, members=slice(c0, c0 + chunk), sorts=sorts,
-                       out=out[c0: c0 + chunk], **statics)
+    if spatial:
+        from pysteps_tpu_torch.parallel.sharded_blending import blending_scan_sharded
+
+        out = blending_scan_sharded(params, state, int_steps, mesh,
+                                    vmax_bound=inputs.vmax_bound, **statics)
+        out = out.to(getattr(torch, output_dtype))
+    elif block is not None:
+        # this rank's members, on every member's draws
+        out = _blending_scan(params, state, int_steps, members=slice(*block), draw_all=True,
+                             sorts=sorts, out_dtype=output_dtype, **statics)
+        out = all_gather_cat(out, mesh, "ens", dim=0)
+    else:
+        out = torch.empty((E, int_steps, m, n), dtype=getattr(torch, output_dtype),
+                          device=device)
+        chunk = member_chunk if member_chunk and E % member_chunk == 0 and subsel is None else E
+        for c0 in range(0, E, chunk):
+            _blending_scan(params, state, int_steps, members=slice(c0, c0 + chunk),
+                           sorts=sorts, out=out[c0: c0 + chunk], **statics)
     _sync(device)
     loop_time = time.time() - t1
 

@@ -16,6 +16,14 @@ The warp follows the JAX module's branch: ``max_disp="auto"`` is
 recentred on the integer global shift, whose gradient is
 ``ops/pallas_warp.py::AxisResample``; on the CPU it is the exact bilinear
 gather, differentiated by autograd.
+
+With ``mesh`` the masked squared difference of each consecutive pair is
+summed over the rows of the mesh's "y" dimension
+(:func:`_make_cost_sharded`): every rank warps the replicated template by
+the exact bilinear gather at its own rows, and the value and the
+gradient are all-reduced, so every rank holds the same sector
+displacements after every Adam step.  The smoothness penalty stays
+replicated, and the shift pre-centring is skipped, as in the JAX module.
 """
 
 import math
@@ -23,9 +31,11 @@ import math
 import numpy as np
 import torch
 from scipy.ndimage import zoom
+from torch.distributed.device_mesh import DeviceMesh
 
 from pysteps_tpu_torch._device import device_of
 from pysteps_tpu_torch.ops.warp import _grid, bilinear_warp, warp_shifted, warp_shifted_multi
+from pysteps_tpu_torch.parallel.mesh import all_reduce, axis_index, axis_size
 
 
 def round_int(scalar):
@@ -220,6 +230,79 @@ def _value_and_grad(cost):
     return value_and_grad
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """Identity on a replicated input whose gradient is summed over the
+    mesh dimension ``name``: a rank's cost term depends on its own rows
+    only, so the replicated input's gradient is the sum of every rank's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.mesh, ctx.name), None, None
+
+
+def _make_cost_sharded(template, target, mask, smooth_gain, sectors, interp_arrays, mesh):
+    """:func:`_make_cost` with the masked squared difference computed on the
+    rank's rows of the mesh's "y" dimension and summed over it; the
+    template (warped by the exact bilinear gather, which reaches any row),
+    the sector displacement and the smoothness penalty stay replicated.
+    Falls back to :func:`_make_cost` where "y" does not divide the rows."""
+    m, n = template.shape
+    n_shards = axis_size(mesh, "y")
+    if m % n_shards:
+        return _make_cost(template, target, mask, smooth_gain, sectors, interp_arrays)
+    m_loc = m // n_shards
+    row0 = axis_index(mesh, "y") * m_loc
+    yy, xx = _grid(m, n, template)
+    yy = yy[row0 : row0 + m_loc]
+    target_l = target[row0 : row0 + m_loc]
+    mask_l = mask[row0 : row0 + m_loc]
+    sector_area = (m // sectors[0]) * (n // sectors[1])
+
+    def value_and_grad(x):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            d = x.reshape((2,) + tuple(sectors))
+            disp = _sector_to_pixels(_SumOverRanks.apply(d, mesh, "y"), tuple(sectors),
+                                     interp_arrays)[:, row0 : row0 + m_loc]
+            warped = bilinear_warp(template, yy - disp[0], xx - disp[1], mode="nearest")
+            ssd = torch.where(mask_l, 0.0, (warped - target_l) ** 2).sum()
+            penalty = smooth_gain * _smoothness_penalty(d) * sector_area
+            (grad,) = torch.autograd.grad(ssd + penalty, x)
+        return all_reduce(ssd.detach(), mesh, "y") + penalty.detach(), grad
+
+    return value_and_grad
+
+
+def _pad_to_sectors(imgs, mask, si, sj):
+    """``imgs`` (T, m, n) and ``mask`` edge-padded so that ``si`` x ``sj``
+    sectors divide them."""
+    pad_i = get_padding(imgs.shape[1], si)
+    pad_j = get_padding(imgs.shape[2], sj)
+    if (pad_i, pad_j) != ((0, 0), (0, 0)):
+        imgs = np.pad(imgs, ((0, 0), pad_i, pad_j), "edge")
+        mask = np.pad(mask, (pad_i, pad_j), "edge")
+    return imgs, mask
+
+
+def _pair_costs_sharded(imgs, mask, sectors, smooth_gain, device, mesh):
+    """One :func:`_make_cost_sharded` for each consecutive pair of ``imgs``
+    (T, m, n), padded so that the ``sectors`` divide them."""
+    si, sj = int(sectors[0]), int(sectors[1])
+    imgs, mask = _pad_to_sectors(imgs, mask, si, sj)
+    m, n = imgs.shape[1:]
+    interp = _interp_matrices(m, n, si, sj, device)
+    mask_t = torch.as_tensor(mask, device=device)
+    return [_make_cost_sharded(torch.as_tensor(imgs[a], dtype=torch.float32, device=device),
+                               torch.as_tensor(imgs[a + 1], dtype=torch.float32, device=device),
+                               mask_t, smooth_gain, (si, sj), interp, mesh)
+            for a in range(imgs.shape[0] - 1)]
+
+
 def _scale_cost(imgs, mask, guess, sectors, max_disp, gshift, smooth_gain, device):
     """The differentiable cost of one sector scale, every consecutive pair
     of ``imgs`` (T, m, n) sharing the flow, with the images and ``mask``
@@ -229,11 +312,7 @@ def _scale_cost(imgs, mask, guess, sectors, max_disp, gshift, smooth_gain, devic
     ``guess`` (2, si, sj) strays from it, plus the optimizer's headroom.
     Returns (cost, the warp's bound)."""
     si, sj = int(sectors[0]), int(sectors[1])
-    pad_i = get_padding(imgs.shape[1], si)
-    pad_j = get_padding(imgs.shape[2], sj)
-    if (pad_i, pad_j) != ((0, 0), (0, 0)):
-        imgs = np.pad(imgs, ((0, 0), pad_i, pad_j), "edge")
-        mask = np.pad(mask, (pad_i, pad_j), "edge")
+    imgs, mask = _pad_to_sectors(imgs, mask, si, sj)
     m, n = imgs.shape[1:]
     templates = imgs[:-1]
     center = (0, 0)
@@ -294,12 +373,15 @@ def vet(input_images, sectors=((32, 16, 4, 2), (32, 16, 4, 2)), smooth_gain=1e6,
     """VET dense displacement (2, m, n), in pixels a time step (x first
     with ``indexing="yx"``), of a (2 or 3, m, n) sequence, as a float32
     tensor on the run's device; ``intermediate_steps`` adds each scale's
-    sector displacements (numpy).  ``mesh`` (a sharded cost) is not
-    ported yet and raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "vet(mesh=...): the sharded cost is not ported yet (ROADMAP A12b)")
+    sector displacements (numpy).  ``mesh`` (a ``parallel.make_mesh``
+    mesh of the run's device type; every rank calls with the same images)
+    sums each pair's cost over the rows of its "y" dimension
+    (:func:`_make_cost_sharded`)."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
     dev = device_of(input_images, device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run VET on {dev}")
     if isinstance(input_images, torch.Tensor):
         input_images = input_images.detach().cpu().numpy()
     input_images = np.asarray(input_images, dtype=np.float64)
@@ -344,9 +426,12 @@ def vet(input_images, sectors=((32, 16, 4, 2), (32, 16, 4, 2)), smooth_gain=1e6,
     for n_scale, (si, sj) in enumerate(pairs):
         if n_scale > 0:
             guess = zoom(guess, (1, si / prev[0], sj / prev[1]), order=1, mode="nearest")
-        cost, _ = _scale_cost(imgs, mask_any, guess, (si, sj), max_disp, gshift, smooth_gain,
-                              dev)
-        pairs_cost = [_value_and_grad(cost)]
+        if mesh is not None:
+            pairs_cost = _pair_costs_sharded(imgs, mask_any, (si, sj), smooth_gain, dev, mesh)
+        else:
+            cost, _ = _scale_cost(imgs, mask_any, guess, (si, sj), max_disp, gshift,
+                                  smooth_gain, dev)
+            pairs_cost = [_value_and_grad(cost)]
         # the coarse scales (at most 4 sectors a side) take fewer steps
         n_scale_steps = max(maxiter, 150) if max(int(si), int(sj)) > 4 else max(maxiter, 80)
         x, final_cost = _minimize_adam(

@@ -6,7 +6,8 @@ pad a window of k taps by (k - 1) // 2 before and k // 2 after.
 PyTorch's cuDNN convolutions round float32 inputs to TF32 (10 mantissa
 bits) unless ``torch.backends.cudnn.allow_tf32`` is False, and its
 default is True; every convolution of the port runs inside
-:func:`ieee_fp32`, which turns TF32 off for the call only.
+:func:`ieee_fp32`, which turns TF32 off for the call only (and cuBLAS'
+float32 matmuls with it, whose flag a caller may have turned on).
 """
 
 import contextlib
@@ -17,14 +18,15 @@ import torch.nn.functional as F
 
 @contextlib.contextmanager
 def ieee_fp32():
-    """cuDNN convolutions in IEEE float32 (no TF32) inside the block; the
-    caller's setting is restored after it."""
-    prev = torch.backends.cudnn.allow_tf32
+    """cuDNN convolutions and cuBLAS matmuls in IEEE float32 (no TF32)
+    inside the block; the caller's settings are restored after it."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def conv2d(x, w, padding=0):

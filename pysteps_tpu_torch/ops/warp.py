@@ -35,16 +35,14 @@ def _grid(m, n, like):
 def _sampler(field, coords_y):
     """(lead, gather) for sampling ``field`` (..., m, n) at coordinates
     shaped like ``coords_y``: ``gather(yi, xi)`` reads the edge-clamped
-    integer positions of every leading index."""
+    integer positions (lead + (h, w)) of every leading index."""
     m, n = field.shape[-2:]
     lead = torch.broadcast_shapes(field.shape[:-2], coords_y.shape[:-2])
     flat = field.expand(lead + (m, n)).reshape(-1, m * n)
 
     def gather(yi, xi):
         idx = torch.clamp(yi, 0, m - 1) * n + torch.clamp(xi, 0, n - 1)
-        return torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(
-            lead + (m, n)
-        )
+        return torch.gather(flat, 1, idx.reshape(flat.shape[0], -1)).reshape(yi.shape)
 
     return lead, gather
 
@@ -59,13 +57,14 @@ def _fill_outside(out, cy, cx, m, n, mode, cval):
 
 
 def bilinear_warp(field, coords_y, coords_x, mode="constant", cval=float("nan")):
-    """Sample ``field`` (..., m, n) at fractional coordinates (..., m, n).
-    mode "constant" fills samples outside [0, m-1] x [0, n-1] with
-    ``cval``; "nearest" clamps to the edge."""
+    """Sample ``field`` (..., m, n) at fractional coordinates (..., h, w),
+    by default the field's own grid (h, w) = (m, n).  mode "constant"
+    fills samples outside [0, m-1] x [0, n-1] with ``cval``; "nearest"
+    clamps to the edge."""
     m, n = field.shape[-2:]
     lead, gather = _sampler(field, coords_y)
-    cy = coords_y.expand(lead + (m, n))
-    cx = coords_x.expand(lead + (m, n))
+    cy = coords_y.expand(lead + coords_y.shape[-2:])
+    cx = coords_x.expand(lead + coords_y.shape[-2:])
     y0 = torch.floor(cy)
     x0 = torch.floor(cx)
     wy = cy - y0

@@ -22,7 +22,10 @@ from pysteps_tpu_torch.parallel.mesh import axis_index, axis_size, mesh_device
 def _all_to_all(x, mesh, axis_name, split_dim, concat_dim):
     """Split ``x`` into equal blocks along ``split_dim``, send block j to
     rank j along ``axis_name`` and concatenate the received blocks along
-    ``concat_dim`` in rank order (``all_to_all(..., tiled=True)``)."""
+    ``concat_dim`` in rank order (``all_to_all(..., tiled=True)``);
+    ``mesh=None`` is one block, which stays."""
+    if mesh is None:
+        return x
     size = axis_size(mesh, axis_name)
     send = torch.stack(torch.tensor_split(x, size, dim=split_dim))
     lanes = torch.view_as_real(send) if send.is_complex() else send
@@ -71,7 +74,8 @@ def spec_cols(n, size):
 
 def _local_cols(n, size, mesh, axis_name):
     c_loc = spec_cols(n, size)
-    return axis_index(mesh, axis_name) * c_loc + torch.arange(c_loc, device=mesh_device(mesh))
+    dev = None if mesh is None else mesh_device(mesh)
+    return axis_index(mesh, axis_name) * c_loc + torch.arange(c_loc, device=dev)
 
 
 def spec_col_mask(n, size, mesh, axis_name="y"):

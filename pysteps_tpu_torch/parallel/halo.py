@@ -33,7 +33,8 @@ def _exchange_halos(f_local, halo, mesh, axis_name="y"):
     and the next rank along ``axis_name`` above and below; the shards at
     the domain's edge replicate their own boundary row.  A halo of the
     block's height or more cannot come from the nearest neighbours alone:
-    then every rank gathers the whole column and slices."""
+    then every rank gathers the whole column and slices.  ``mesh=None`` is
+    one block, extended by its own edge rows."""
     idx = axis_index(mesh, axis_name)
     size = axis_size(mesh, axis_name)
     m_loc = f_local.shape[-2]
@@ -45,8 +46,8 @@ def _exchange_halos(f_local, halo, mesh, axis_name="y"):
         return padded[..., idx * m_loc : idx * m_loc + m_loc + 2 * halo, :]
     top = _edge(f_local[..., :1, :], halo)
     bottom = _edge(f_local[..., -1:, :], halo)
-    group = mesh.get_group(axis_name)
     ops = []
+    group = None if size == 1 else mesh.get_group(axis_name)
     if idx > 0:
         prev = dist.get_global_rank(group, idx - 1)
         top = torch.empty_like(top, memory_format=torch.contiguous_format)

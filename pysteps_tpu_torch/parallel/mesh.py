@@ -90,13 +90,15 @@ def make_mesh_multihost(y=1, x=1, device_type="cuda"):
 
 
 def axis_size(mesh, name):
-    """Number of ranks along the mesh dimension ``name``."""
-    return mesh.size(AXES.index(name))
+    """Number of ranks along the mesh dimension ``name`` (1 for
+    ``mesh=None``, one block of the whole problem)."""
+    return 1 if mesh is None else mesh.size(AXES.index(name))
 
 
 def axis_index(mesh, name):
-    """This rank's coordinate along the mesh dimension ``name``."""
-    return mesh.get_local_rank(name)
+    """This rank's coordinate along the mesh dimension ``name`` (0 for
+    ``mesh=None``)."""
+    return 0 if mesh is None else mesh.get_local_rank(name)
 
 
 def mesh_device(mesh):
@@ -124,7 +126,8 @@ def replicated(mesh):
 
 def member_block(n, mesh, axis_name="ens"):
     """(start, stop) of this rank's block of ``n`` items (members, cases)
-    split over the mesh dimension ``axis_name``."""
+    split over the mesh dimension ``axis_name`` (all of them for
+    ``mesh=None``)."""
     size = axis_size(mesh, axis_name)
     if n % size:
         raise ValueError(f"{n} items not divisible by {axis_name} shards {size}")
@@ -166,7 +169,10 @@ def all_reduce(x, mesh, name, op=dist.ReduceOp.SUM):
 
 def all_gather_cat(t, mesh, name, dim=0):
     """Concatenate every rank's ``t`` along ``dim`` over the mesh
-    dimension ``name``, in rank order (one all-gather)."""
+    dimension ``name``, in rank order (one all-gather); ``mesh=None``
+    returns ``t``."""
+    if mesh is None:
+        return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(axis_size(mesh, name))]
     dist.all_gather(parts, t, group=mesh.get_group(name))

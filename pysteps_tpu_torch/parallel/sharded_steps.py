@@ -141,7 +141,19 @@ def _match_cdf_psum_binned(field_rows, zvalue_trg, c_t, tlo, tscale, n_wet_trg,
     """:func:`_match_cdf_psum` on a purely binned target: the cap and the
     dry-quantile value come from the binned CDF ``c_t``, so no sorted
     target is needed (sharded blending's resampled targets change every
-    lead)."""
+    lead).  ``c_t`` is one target (bins,) for every member, or one a
+    member (B, bins) with (B,) statistics ``zvalue_trg``, ``tlo``,
+    ``tscale``, ``n_wet_trg`` and ``trg_max``."""
+    if c_t.ndim == 2:
+        def target_at_each(p_idx):
+            vp = torch.searchsorted(c_t, p_idx.to(c_t.dtype)[:, None], right=True)[:, 0]
+            return torch.minimum(tlo + (vp.to(torch.float32) + 0.5) / tscale, trg_max)
+
+        return _pwl_match_psum(
+            field_rows, zvalue_trg[:, None], c_t, tlo[:, None], tscale[:, None], n_wet_trg,
+            trg_max[:, None], target_at_each, size, mesh, axis_name,
+        )
+
     def target_at(p_idx):
         vp = torch.searchsorted(c_t, p_idx.to(c_t.dtype), right=True)
         return torch.minimum(tlo + (vp.to(torch.float32) + 0.5) / tscale, trg_max)

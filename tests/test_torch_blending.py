@@ -100,7 +100,7 @@ def test_pca_n_components_errors_and_mesh():
             jpca.pca_transform(X, pca_params={k: np.asarray(v) for k, v in bad.items()})
     with pytest.raises(ValueError):
         tpca.pca_transform(X[0], device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tpca.pca_transform(X, mesh=object(), device="cpu")
 
 

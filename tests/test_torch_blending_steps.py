@@ -263,7 +263,7 @@ def test_argument_errors_and_mesh(data):
             jblending.get_method("steps")(*args, **kw)
         with pytest.raises(ValueError):
             tblending.get_method("steps")(*args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tblending.get_method("steps")(*args, device="cpu", mesh=object(), **DET)
 
 

@@ -371,7 +371,7 @@ def test_forecast_callback_verbose_and_return_output(data, capsys):
                                         measure_time=True, **kw)
     np.testing.assert_array_equal(out.numpy(), full.numpy())
     assert init_s >= 0 and loop_s >= 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tpca.forecast(db[1:3], None, nwp_ens, None, velocity, 3, mesh=object(), **kw)
 
 

@@ -385,3 +385,22 @@ def test_host_modules_import_without_pandas_and_matplotlib(module, monkeypatch):
     if module.endswith("plots"):
         with pytest.raises(ImportError):
             mod.plot_rankhist(np.ones(3) / 3)
+
+
+def test_native_loads_without_jax():
+    """The port's native decoders build and load with no JAX in the
+    process."""
+    code = """
+import sys
+import numpy as np
+from pysteps_tpu_torch import native
+assert native.get_lib() is not None
+out = native.radolan_decode(np.arange(16, dtype=np.uint16), 4)
+assert out.shape == (4, 4) and out.dtype == np.float32
+assert "jax" not in sys.modules and "pysteps_tpu" not in sys.modules
+print("ok")
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")

@@ -250,7 +250,7 @@ def test_vet_options(small_db):
                               padding=4, intermediate_steps=True, device="cpu")
     assert tuple(dense.shape) == (2, 128, 128)
     assert [g.shape for g in guesses] == [(2, 4, 4), (2, 8, 8)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tvet.vet(frames, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         tvet.vet(small_db[:1], device="cpu")

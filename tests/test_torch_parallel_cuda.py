@@ -24,13 +24,22 @@
   chunk, 1.0e-5 in chunks of 2; NVIDIA H100 80GB HBM3, 700.00 W).  On the
   CPU the blocks are bit-equal (tests/test_torch_parallel.py);
 - RainFARM's balanced average in IEEE float32 with cuDNN's TF32 allowed
-  around the call (PyTorch's default), within 1e-5 of float64 on the CPU.
+  around the call (PyTorch's default), within 1e-5 of float64 on the CPU;
+- both psum matchers of ``sharded_steps`` (the binned one also with one
+  target a member, as sharded blending's resampled targets) on the
+  1-rank mesh equal to the CPU's one block (``mesh=None``) bit for bit;
+- sharded blending (``sharded_blending.blending_scan_sharded``) at 4 x
+  64^2 x 2 leads launches K1 once an axis a lead (its halo warp) and K4
+  from a mask never (its inputs are prepared on the CPU); the last lead's
+  halo warp through K1 equals the same warp through K1's plain version on
+  the card bit for bit.
 
 Every test needs a CUDA card and skips without one.  On the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_parallel_cuda.py -q
 """
 
+import dataclasses
 import socket
 import sys
 from pathlib import Path
@@ -44,10 +53,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_parallel_workers as workers  # noqa: E402
 
 from pysteps_tpu_torch import nowcasts  # noqa: E402
+from pysteps_tpu_torch.blending import steps as blend_steps  # noqa: E402
 from pysteps_tpu_torch.downscaling import rainfarm  # noqa: E402
-from pysteps_tpu_torch.ops import _kernels  # noqa: E402
+from pysteps_tpu_torch.ops import _kernels, pallas_warp  # noqa: E402
+from pysteps_tpu_torch.ops import warp as warp_mod  # noqa: E402
 from pysteps_tpu_torch.ops.warp import warp_shifted  # noqa: E402
 from pysteps_tpu_torch.parallel import dist_fft, halo, make_mesh, sharded_steps  # noqa: E402
+from pysteps_tpu_torch.parallel import sharded_blending  # noqa: E402
 from pysteps_tpu_torch.parallel.mesh import all_gather_cat, all_reduce  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +174,67 @@ def test_rainfarm_balanced_average_ieee(dev):
     card, ref = card.cpu().double().numpy(), ref.numpy()
     assert np.array_equal(np.isnan(card), np.isnan(ref))
     assert np.nanmax(np.abs(card - ref)) <= 1e-5 * np.nanmax(np.abs(ref))
+
+
+@pytest.mark.parametrize("which", ["psum", "binned", "binned_per_member"])
+def test_psum_matchers_card_vs_cpu(mesh, which):
+    fields, target = workers.match_inputs()
+    tstate = sharded_steps._prepare_pwl_target(torch.as_tensor(target))
+    ranked, zvalue, c_t, tlo, tscale, n_wet = tstate
+    size = float(fields[0].size)
+
+    def match(x, dev, m):
+        if which == "psum":
+            return sharded_steps._match_cdf_psum(x, tuple(t.to(dev) for t in tstate), size, m)
+        stats = (zvalue, c_t, tlo, tscale, n_wet, ranked[-1] - 1.0)
+        if which == "binned_per_member":
+            B = x.shape[0]
+            stats = tuple(t.expand((B,) + t.shape).contiguous() for t in stats)
+        return sharded_steps._match_cdf_psum_binned(x, *(t.to(dev) for t in stats), size,
+                                                    m)
+
+    card = match(torch.as_tensor(fields, device="cuda"), "cuda", mesh)
+    cpu = match(torch.as_tensor(fields), "cpu", None)
+    assert torch.equal(card.cpu(), cpu)
+
+
+def test_sharded_blending_halo_warp_launches_k1(mesh, tmp_path):
+    db, nwp, vel, vel_m = workers.blend_inputs(2)
+    inp = blend_steps.scan_inputs(db, nwp, vel, vel_m, 2, 5, device="cpu",
+                                  outdir_path_skill=str(tmp_path),
+                                  **dict(workers.BLEND_KW, n_ens_members=4, seed=3))
+
+    def cuda(obj, **over):
+        return dataclasses.replace(obj, **{k: v.cuda() for k, v in vars(obj).items()
+                                           if isinstance(v, torch.Tensor)}, **over)
+
+    params = cuda(inp.params)
+    state = cuda(inp.state, generator=torch.Generator(device="cuda").manual_seed(3))
+    seen = {}
+    orig = sharded_blending._warp_from_ext
+
+    def keep(*args):
+        seen["args"] = args
+        return orig(*args)
+
+    sharded_blending._warp_from_ext = keep
+    try:
+        _kernels.reset_launches()
+        out = sharded_blending.blending_scan_sharded(params, state, 2, mesh,
+                                                     vmax_bound=inp.vmax_bound, **inp.statics)
+        torch.cuda.synchronize()
+    finally:
+        sharded_blending._warp_from_ext = orig
+    launches = dict(_kernels.LAUNCHES)
+    assert launches.pop("resample_axis0") == 2 and launches.pop("resample_axis1") == 2
+    assert not any(launches.values())
+    assert tuple(out.shape) == (4, 2, 64, 64) and bool(torch.isfinite(out).all())
+    ext, disp, h, cval, _ = seen["args"]
+    kernel = orig(ext, disp, h, cval, mesh)
+    real = warp_mod.axis_resample
+    warp_mod.axis_resample = pallas_warp._axis_resample
+    try:
+        plain = orig(ext, disp, h, cval, mesh)
+    finally:
+        warp_mod.axis_resample = real
+    assert torch.equal(kernel, plain)

@@ -1,6 +1,7 @@
-"""Multi-rank checks of the port's ``parallel/`` and ``verification/parallel``
-on the CPU: ranks spawned into one ``gloo`` process group with a file
-rendezvous, so that concurrent test workers never share a port.
+"""Multi-rank checks of the port's ``parallel/``, ``verification/parallel``
+and the ``mesh=`` of blending, the PCA fit, the EnKFs and VET on the CPU:
+ranks spawned into one ``gloo`` process group with a file rendezvous, so
+that concurrent test workers never share a port.
 
 This module imports only torch, numpy, the port and ``helpers`` (numpy), so
 that the spawned ranks never import JAX.  :func:`run_group` starts the
@@ -276,21 +277,26 @@ def parallel_checks(rank):
 
 @contextlib.contextmanager
 def as_ens_rank(block, ens=2):
-    """STEPS' ``mesh=`` branch on a mesh of one rank, run as the rank of an
-    "ens" dimension of ``ens`` ranks that holds the members ``block``
-    (start, stop): ``member_block`` gives the block, ``axis_size`` ``ens``
-    ranks on "ens", and the closing all-gather returns the block alone.
+    """STEPS' (and STEPS blending's) ``mesh=`` branch on a mesh of one rank,
+    run as the rank of an "ens" dimension of ``ens`` ranks that holds the
+    members ``block`` (start, stop): ``member_block`` gives the block,
+    ``axis_size`` ``ens`` ranks on "ens", and the closing all-gather
+    returns the block alone.
     So each rank's block of a sharded forecast runs in turn on one card."""
+    from pysteps_tpu_torch.blending import steps as blend_steps
     from pysteps_tpu_torch.nowcasts import steps
 
-    orig = steps.axis_size, steps.member_block, steps.all_gather_cat
-    steps.axis_size = lambda mesh, name: ens if name == "ens" else orig[0](mesh, name)
-    steps.member_block = lambda n, mesh, axis_name="ens": tuple(block)
-    steps.all_gather_cat = lambda t, mesh, name, dim=0: t
+    mods = (steps, blend_steps)
+    orig = [(mod.axis_size, mod.member_block, mod.all_gather_cat) for mod in mods]
+    for mod, (size, _, _) in zip(mods, orig):
+        mod.axis_size = lambda mesh, name, size=size: ens if name == "ens" else size(mesh, name)
+        mod.member_block = lambda n, mesh, axis_name="ens": tuple(block)
+        mod.all_gather_cat = lambda t, mesh, name, dim=0: t
     try:
         yield
     finally:
-        steps.axis_size, steps.member_block, steps.all_gather_cat = orig
+        for mod, fns in zip(mods, orig):
+            mod.axis_size, mod.member_block, mod.all_gather_cat = fns
 
 
 def block_launches(block, E, T, member_chunk=None, ar_order=2):
@@ -305,6 +311,236 @@ def block_launches(block, E, T, member_chunk=None, ar_order=2):
     k1 = ar_order * 2 + 1 + 2 * T * chunks
     return {"resample_axis0": k1, "resample_axis1": k1, "chain_match_vert_rim": T * chunks,
             "chain_horiz": T * chunks, "rim_from_mask": 1}
+
+
+# sharded blending cases, tests/test_parallel.py:72-219: (mesh (ens, y),
+# input seed, grid, forecast kwargs) at 2 leads, 6 levels
+BLEND_KW = dict(n_cascade_levels=6, precip_thr=-10.0, kmperpixel=1.0)
+BLEND_CASES = {
+    "y_mean": ((2, 2), 2, (64, 64), dict(n_ens_members=4, seed=11, probmatching_method="mean")),
+    "ens4": ((4, 1), 2, (64, 64), dict(n_ens_members=8, seed=11)),
+    "inv_1x2": ((1, 2), 9, (64, 64), dict(n_ens_members=4, seed=3, vel_pert_method="bps")),
+    "inv_2x2": ((2, 2), 9, (64, 64), dict(n_ens_members=4, seed=3, vel_pert_method="bps")),
+    "halo_1x2": ((1, 2), 13, (32, 64), dict(n_ens_members=2, seed=3, vel_pert_method="bps")),
+    "halo_1x4": ((1, 4), 13, (32, 64), dict(n_ens_members=2, seed=3, vel_pert_method="bps")),
+}
+# the unsharded forecasts a rank also runs, on its one thread: (case, rank)
+BLEND_PLAIN = {"ens4": 1, "y_mean": 2}
+# VET on 4 row shards (tests/test_parallel.py:222-241)
+VET_KW = dict(sectors=((8, 4), (8, 4)), options={"maxiter": 40}, verbose=False)
+VET_SECTORS = (8, 4)
+VET_SMOOTH = 1e3
+# PCA fits: (mesh (ens, y), features) on 8 members, the second padded
+PCA_CASES = {"y4": ((1, 4), 1000), "ens4_pad": ((4, 1), 1001)}
+
+
+def blend_inputs(seed, shape=(64, 64)):
+    """tests/test_parallel.py's blending inputs: 7 synthetic frames in dB,
+    the first 3 observed, a (2, 1) px motion, one NWP model from frames
+    2-5 with 0.5 randn from ``RandomState(5)``."""
+    frames = make_synthetic_sequence(n_frames=7, shape=shape, velocity=(2.0, 1.0), seed=seed)
+    db = np.where(frames >= 0.1, 10 * np.log10(np.maximum(frames, 0.1)), -15.0)
+    db = db.astype(np.float32)
+    vel = np.zeros((2,) + shape, np.float32)
+    vel[0], vel[1] = 2.0, 1.0
+    nwp = db[2:6] + 0.5 * np.random.RandomState(5).randn(4, *shape).astype(np.float32)
+    return db[:3], nwp[None], vel, vel[None]
+
+
+def blend_case(name, skill_dir, mesh=None, **over):
+    """Case ``name`` of ``BLEND_CASES`` through ``blending.get_method("steps")``
+    on the CPU, with ``mesh`` (None: unsharded)."""
+    from pysteps_tpu_torch import blending
+
+    _, seed, shape, kw = BLEND_CASES[name]
+    return blending.get_method("steps")(*blend_inputs(seed, shape), 2, 5, mesh=mesh,
+                                        outdir_path_skill=skill_dir, device="cpu",
+                                        **dict(BLEND_KW, **kw, **over))
+
+
+def vet_inputs():
+    frames = make_synthetic_sequence(n_frames=2, shape=(64, 64), velocity=(2.0, 1.0), seed=4)
+    return np.where(frames >= 0.1, 10 * np.log10(np.maximum(frames, 0.1)), -15.0)
+
+
+def vet_cost_inputs():
+    """A template, target, mask and sector displacement of the sharded VET
+    cost check (64^2, 8 x 4 sectors)."""
+    db = vet_inputs().astype(np.float32)
+    mask = np.zeros((64, 64), bool)
+    mask[:3] = True
+    x = np.random.RandomState(3).uniform(-2.0, 2.0, 2 * 8 * 4).astype(np.float32)
+    return db[0], db[1], mask, x
+
+
+def pca_inputs(n_feat):
+    rng = np.random.RandomState(n_feat)
+    X = rng.gamma(2.0, 2.0, (8, n_feat)).astype(np.float32)
+    return X - X.mean(axis=0)
+
+
+def noise_inputs():
+    """Two members' white half-planes at 64^2, a filter, 6 levels of the
+    Gaussian bank and std coefficients."""
+    from pysteps_tpu_torch import cascade
+
+    rng = np.random.RandomState(8)
+    white = (rng.randn(2, 64, 33) + 1j * rng.randn(2, 64, 33)).astype(np.complex64) * 45.0
+    white[:, :, 0] = (white[:, :, 0] + np.conj(np.roll(white[:, ::-1, 0], 1, axis=1))) / 2**0.5
+    white[:, :, -1] = (white[:, :, -1] + np.conj(np.roll(white[:, ::-1, -1], 1, axis=1))) / 2**0.5
+    ky = np.fft.fftfreq(64)[:, None]
+    kx = np.fft.rfftfreq(64)[None, :]
+    filt = (1.0 / (1e-2 + np.hypot(ky, kx))).astype(np.float32)
+    w2d = np.asarray(cascade.get_method("gaussian")((64, 64), 6)["weights_2d"], np.float32)
+    nsc = np.linspace(0.8, 1.2, 6).astype(np.float32)
+    return white, filt, w2d, nsc
+
+
+def enkf_inputs():
+    """tests/test_torch_enkf.py's ``data``: 64^2 dB frames, the motion and a
+    two-member NWP ensemble of 4 leads."""
+    frames = make_synthetic_sequence(n_frames=9, shape=(64, 64), velocity=(2.0, 1.0), seed=1)
+    db = np.where(frames >= 0.1, 10 * np.log10(np.maximum(frames, 0.1)), -15.0)
+    velocity = np.zeros((2, 64, 64), np.float32)
+    velocity[0], velocity[1] = 2.0, 1.0
+    nwp = (db[2:9] + 0.5 * np.random.RandomState(7).randn(7, 64, 64)).astype(np.float32)
+    return db.astype(np.float32)[1:3], np.stack([nwp[:4], nwp[:4] + 0.2]), velocity
+
+
+ENKF_KW = dict(n_ens_members=4, precip_thr=-10.0, seed=42)
+
+
+def masked_enkf_inputs():
+    """tests/test_torch_enkf.py::test_masked_enkf_correct_step's ensembles
+    (6 members at 32^2) and filter configuration."""
+    rng = np.random.RandomState(11)
+    bg = np.abs(rng.gamma(2.0, 2.0, (6, 32, 32))).astype(np.float32)
+    obs = np.abs(rng.gamma(2.0, 2.5, (6, 32, 32))).astype(np.float32)
+    bg[:3, :, 16:] = 0.0
+
+    class Cfg:
+        n_ens_members = 6
+        precip_threshold = 0.5
+        norain_threshold = 0.0
+
+    return bg, obs, Cfg, {"n_lien": 3, "sampling_prob_source": "ensemble",
+                          "iterative_prob_matching": False}
+
+
+def masked_enkf_steps(mesh, steps=2):
+    """Two corrections of ``masked_enkf_inputs`` by ``MaskedEnKF`` with
+    ``mesh`` in its combination kwargs (None: unsharded)."""
+    from pysteps_tpu_torch.blending.ens_kalman_filter_methods import MaskedEnKF
+
+    bg, obs, Cfg, kw = masked_enkf_inputs()
+    params = type("P", (), {"combination_kwargs": dict(kw, mesh=mesh)})()
+    enkf = MaskedEnKF(Cfg(), params)
+    outs = [_np(enkf.correct_step(torch.as_tensor(bg), torch.as_tensor(obs))[0])
+            for _ in range(steps)]
+    return np.stack(outs), np.array([enkf.sampling_probability])
+
+
+def _raises(call, exc=ValueError):
+    try:
+        call()
+    except exc:
+        return np.array(True)
+    return np.array(False)
+
+
+def blending_checks(rank):
+    """Every check of tests/test_torch_parallel_blending.py that needs
+    several ranks; returns this rank's results (name -> array)."""
+    import tempfile
+
+    from pysteps_tpu_torch.blending import pca_ens_kalman_filter, steps
+    from pysteps_tpu_torch.motion import vet
+    from pysteps_tpu_torch.parallel import make_mesh, sharded_blending
+    from pysteps_tpu_torch.parallel.mesh import all_gather_cat
+    from pysteps_tpu_torch.utils import pca
+
+    res = {}
+    skill = tempfile.mkdtemp()
+    meshes = {}
+    for name, ((ens, y), _, _, _) in BLEND_CASES.items():
+        mesh = meshes.setdefault((ens, y), make_mesh(ens=ens, y=y, device_type="cpu"))
+        if mesh.get_coordinate() is not None:
+            res[f"blend_{name}"] = _np(blend_case(name, skill, mesh))
+    for name, r in BLEND_PLAIN.items():
+        if rank == r:
+            res[f"blend_{name}_plain"] = _np(blend_case(name, skill))
+    # the halo of the 8-row blocks passes a block: the exchange gathers
+    _, seed, shape, kw = BLEND_CASES["halo_1x4"]
+    inputs = steps.scan_inputs(*blend_inputs(seed, shape), 2, 5, device="cpu",
+                               outdir_path_skill=skill, **dict(BLEND_KW, **kw))
+    st = inputs.statics
+    res["halo_1x4_halo"] = np.array(sharded_blending._halo(
+        2, inputs.vmax_bound, st["struct_radius"], st["mask_rim"], shape[0]))
+
+    # the spatial route refuses what the JAX package refuses
+    mesh_22, mesh_y4 = meshes[(2, 2)], meshes[(1, 4)]
+    _, seed, shape, kw = BLEND_CASES["y_mean"]
+    args = blend_inputs(seed, shape)
+    from pysteps_tpu_torch import blending
+
+    def spatial(args=args, **over):
+        return blending.get_method("steps")(*args, 2, 5, mesh=mesh_22, device="cpu",
+                                            outdir_path_skill=skill,
+                                            **dict(BLEND_KW, **dict(kw, **over)))
+
+    res["err_members"] = _raises(lambda: spatial(n_ens_members=3))
+    res["err_rows"] = _raises(lambda: blending.get_method("steps")(
+        *blend_inputs(seed, (30, 64)), 2, 5, mesh=mesh_y4, device="cpu",
+        outdir_path_skill=skill, **dict(BLEND_KW, **kw)))
+    res["err_external"] = _raises(lambda: spatial(
+        precip_nowcast=np.repeat(args[0][-1:], 4, axis=0)[:, None].repeat(2, axis=1),
+        nowcasting_method="external_nowcast"))
+    inputs = steps.scan_inputs(*args, 2, 5, device="cpu", outdir_path_skill=skill,
+                               **dict(BLEND_KW, **kw))
+    res["err_chunked"] = _raises(lambda: sharded_blending.blending_scan_sharded(
+        inputs.params, inputs.state, 2, mesh_22, members=slice(0, 2), **inputs.statics))
+
+    # the noise normalization on 4 row shards (its columns)
+    white, filt, w2d, nsc = noise_inputs()
+    c_loc = 9  # the 33 columns padded to 36
+    col0 = mesh_y4.get_local_rank("y") * c_loc
+
+    def cols(a):
+        a = np.concatenate([a, np.zeros(a.shape[:-1] + (36 - 33,), a.dtype)], axis=-1)
+        return torch.as_tensor(a[..., col0 : col0 + c_loc])
+
+    from pysteps_tpu_torch.parallel.dist_fft import spec_weight_local
+
+    levels, mu, sd = sharded_blending._noise_levels(
+        cols(white), cols(filt), cols(w2d), spec_weight_local(64, 4, mesh_y4),
+        torch.as_tensor(nsc), (64, 64), col0, mesh_y4)
+    res["noise_levels"] = _np(all_gather_cat(levels, mesh_y4, "y", dim=-2))
+    res["noise_mu"], res["noise_sd"] = _np(mu), _np(sd)
+
+    # the PCA fit on 4 ranks, over "y" and (padded) over "ens"
+    for name, ((ens, y), n_feat) in PCA_CASES.items():
+        mesh = meshes.get((ens, y)) or make_mesh(ens=ens, y=y, device_type="cpu")
+        vt, var = pca._fit_pca_sharded(torch.as_tensor(pca_inputs(n_feat)), mesh)
+        res[f"pca_{name}_vt"], res[f"pca_{name}_var"] = _np(vt), _np(var)
+
+    # the masked EnKF's corrections with the mesh, and the PCA EnKF
+    res["masked_enkf"], res["masked_enkf_prob"] = masked_enkf_steps(mesh_y4)
+    obs, nwp_ens, velocity = enkf_inputs()
+    res["pca_enkf"] = _np(pca_ens_kalman_filter.forecast(
+        obs, None, nwp_ens, None, velocity, 3, device="cpu", mesh=mesh_y4, **ENKF_KW))
+    if rank == 0:
+        res["pca_enkf_plain"] = _np(pca_ens_kalman_filter.forecast(
+            obs, None, nwp_ens, None, velocity, 3, device="cpu", **ENKF_KW))
+
+    # VET's sharded cost at one sector displacement, and VET on 4 row shards
+    tmpl, trg, mask, x = vet_cost_inputs()
+    cost = vet._make_cost_sharded(
+        torch.as_tensor(tmpl), torch.as_tensor(trg), torch.as_tensor(mask), VET_SMOOTH,
+        VET_SECTORS, vet._interp_matrices(64, 64, *VET_SECTORS, "cpu"), mesh_y4)
+    value, grad = cost(torch.as_tensor(x))
+    res["vet_cost_value"], res["vet_cost_grad"] = _np(value), _np(grad)
+    res["vet_flow"] = _np(vet.vet(vet_inputs(), mesh=mesh_y4, device="cpu", **VET_KW))
+    return res
 
 
 def _entry(rank, target, world, pg_path, out_dir):
