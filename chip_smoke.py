@@ -155,6 +155,25 @@ Phases, each printing JSON lines:
    unsharded exact branch and ``tests/test_motion.py``'s truth bound;
 21. native: the port's C++ decoders built with the host's ``g++`` and
    ``radolan_decode`` against the NumPy decode, bit for bit;
+22. path IO, the operational cycle around the nowcast through the port's
+   public entry points: ``datasets.create_synthetic_dataset`` writes a
+   512^2 archive of 8 NPZ frames, ``io.archive.find_by_date`` and
+   ``io.readers.read_timeseries`` with the NPZ importer read the last 3,
+   ``utils.transformation.dB_transform`` and Lucas-Kanade run on the card
+   (no kernel launched), then path A's forecast (96 members x 512^2 x 12
+   leads, the same configuration and exact launches) hands each lead
+   through its callback to the NPZ exporter (``incremental="timestep"``;
+   the card's machine has no h5py for the CF NetCDF writer), whose file
+   ``io.nowcast_importers.import_netcdf_pysteps`` reads back bit-equal to
+   the callback's frames (a SHA-256 a lead) with the importer's geodata;
+   a float32 and a bfloat16 card tensor of the last lead are written and
+   read back; ``plot_precip_field`` and ``motion_plot`` draw from card
+   tensors where matplotlib is installed (the card's machine has none);
+   ``scripts.run_vel_pert_analysis.run_analysis`` covers the archive's
+   last 6 dates with Lucas-Kanade on the card and
+   ``scripts.fit_vel_pert_params.fit_parameters`` fits finite parameters;
+   the line gives each step's seconds, the file's size and the peak
+   device memory;
 
 each path with the launch counts set to 0 just before it and read just
 after.  Then the ``kernels`` summary line (each row's ``launches`` from the
@@ -3212,6 +3231,187 @@ def phase_native(name, smi):
           "device": name, "nvidia_smi": smi})
 
 
+# path IO: the radar archive of 512^2 NPZ frames that the cycle reads (3
+# inputs for the forecast), and the stretch of it that the vel-pert
+# analysis covers (Lucas-Kanade on 3 frames at each of its dates)
+IO_FRAMES = 8
+IO_VP_DATES = 6
+IO_VP_MAX_LEAD = 15  # minutes: 3 lead times for the 3 parameters of a*t^b+c
+IO_TENSOR_MEMBERS = 8  # members of the last lead written from card tensors
+
+
+def _io_cycle_files(tmp, start):
+    """Path IO's archive: ``datasets.create_synthetic_dataset``'s NPZ
+    frames under ``tmp`` and their source entry, as an rc file holds it."""
+    from pysteps_tpu_torch import datasets
+
+    _, geodata = datasets.create_synthetic_dataset(
+        tmp, n_frames=IO_FRAMES, shape=(SIDE, SIDE), velocity=(2.0, 1.0), seed=42,
+        start_time=start.strftime("%Y%m%d%H%M"))
+    source = {"root_path": tmp, "path_fmt": "synthetic", "fn_pattern": "synthetic_%Y%m%d%H%M",
+              "fn_ext": "npz", "importer": "npz", "timestep": 5, "importer_kwargs": {}}
+    return geodata, source
+
+
+def phase_io(name, smi):
+    """Path IO: the operational cycle around the nowcast through the port's
+    public entry points (see the module docstring).  Raises unless the
+    re-imported forecast equals, bit for bit, the frames the callback
+    handed to the exporter (a SHA-256 a lead), its metadata holds the
+    importer's geodata, the forecast launched exactly path A's kernels,
+    the card's float32 and bfloat16 tensors write what they read back to,
+    and the fitted perturbation parameters are finite.  Returns the
+    forecast's launch counts."""
+    import hashlib
+    import importlib.util
+
+    from pysteps_tpu_torch import io
+    from pysteps_tpu_torch.scripts import fit_vel_pert_params, run_vel_pert_analysis
+    from pysteps_tpu_torch.utils import transformation
+
+    dev = torch.device("cuda")
+    secs = {}
+    start = datetime.datetime(2026, 8, 17, 12, 0)
+    when = start + datetime.timedelta(minutes=5 * (IO_FRAMES - 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        geodata, source = _io_cycle_files(tmp, start)
+        secs["archive"] = time.time() - t0
+
+        t0 = time.time()
+        fns = io.archive.find_by_date(when, tmp, source["path_fmt"], source["fn_pattern"],
+                                      source["fn_ext"], source["timestep"], num_prev_files=2)
+        rain, _, meta = io.readers.read_timeseries(fns, io.get_method("npz", "importer"))
+        secs["import"] = time.time() - t0
+        if (rain.shape != (3, SIDE, SIDE) or not np.isfinite(rain).all()
+                or any(meta[k] != v for k, v in geodata.items())):
+            raise AssertionError(f"IO: imported {rain.shape} with metadata {meta}")
+
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.time()
+        db, db_meta = transformation.dB_transform(rain, meta)
+        velocity = motion.get_method("lucaskanade")(db)
+        torch.cuda.synchronize()
+        secs["motion"] = time.time() - t0
+        _check_launches("IO motion", dict(_kernels.LAUNCHES), {})
+        if not (db.is_cuda and velocity.is_cuda) or tuple(velocity.shape) != (2, SIDE, SIDE):
+            raise AssertionError(f"IO: flow of shape {tuple(velocity.shape)} on {velocity.device}")
+
+        outdir = os.path.join(tmp, "forecast")
+        exporter = io.get_method("npz", "exporter")(
+            outdir, "forecast", when, 5, N_LEADS, (SIDE, SIDE), db_meta,
+            n_ens_members=N_MEMBERS, incremental="timestep")
+        sums, write_s = [], [0.0]
+
+        def callback(frames):
+            t = time.time()
+            sums.append(hashlib.sha256(np.ascontiguousarray(frames)).hexdigest())
+            io.export_forecast_dataset(frames, exporter)
+            write_s[0] += time.time() - t
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        t0 = time.time()
+        res = nowcasts.get_method("steps")(db, velocity, N_LEADS, callback=callback,
+                                           return_output=False, **BENCH_KWARGS)
+        torch.cuda.synchronize()
+        secs["forecast"] = time.time() - t0 - write_s[0]
+        launches = dict(_kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        k1 = _k1_launches(N_LEADS)
+        _check_launches("IO", launches, {
+            "resample_axis0": k1, "resample_axis1": k1, "chain_match_vert_rim": N_LEADS,
+            "chain_horiz": N_LEADS, "rim_from_mask": 1})
+        if res is not None or len(sums) != N_LEADS:
+            raise AssertionError(f"IO: returned {type(res)} after {len(sums)} leads")
+        t0 = time.time()
+        io.close_forecast_files(exporter)
+        secs["export"] = write_s[0] + time.time() - t0
+        path = os.path.join(outdir, "forecast.npz")
+        size = os.path.getsize(path)
+
+        t0 = time.time()
+        fc, fc_meta = io.nowcast_importers.import_netcdf_pysteps(path, onerror="raise")
+        secs["reimport"] = time.time() - t0
+        if fc.shape != (N_MEMBERS, N_LEADS, SIDE, SIDE) or fc.dtype != np.float32:
+            raise AssertionError(f"IO: re-imported {fc.shape} {fc.dtype}")
+        for t in range(N_LEADS):
+            if hashlib.sha256(np.ascontiguousarray(fc[:, t])).hexdigest() != sums[t]:
+                raise AssertionError(f"IO: lead {t} of the file differs from the callback's")
+        geo_keys = ("projection", "institution", "x1", "x2", "y1", "y2", "xpixelsize",
+                    "ypixelsize", "cartesian_unit", "yorigin")
+        if any(fc_meta[k] != geodata[k] for k in geo_keys) or fc_meta["transform"] != "dB":
+            raise AssertionError(f"IO: the file's metadata {fc_meta} lost the geodata")
+        finite = float(np.isfinite(fc[:, -1]).mean())
+        if finite < 0.75:
+            raise AssertionError(f"IO: finite share {finite} at the last lead")
+
+        # the card's own tensors, float32 and bfloat16, through the exporter
+        lead = torch.as_tensor(fc[:IO_TENSOR_MEMBERS, -1], device=dev)
+        tensor_dtypes = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = lead.to(dtype)[:, None]
+            exp = io.get_method("npz", "exporter")(
+                outdir, f"lead_{dtype}", when, 5, 1, (SIDE, SIDE), db_meta,
+                n_ens_members=IO_TENSOR_MEMBERS)
+            io.export_forecast_dataset(x, exp)
+            io.close_forecast_files(exp)
+            back, _ = io.nowcast_importers.import_netcdf_pysteps(
+                os.path.join(outdir, f"lead_{dtype}.npz"), onerror="raise")
+            if not np.array_equal(back, x.float().cpu().numpy(), equal_nan=True):
+                raise AssertionError(f"IO: a {dtype} card tensor wrote other values")
+            tensor_dtypes.append(str(dtype))
+
+        # the plots, where matplotlib is installed
+        pngs = None
+        if importlib.util.find_spec("matplotlib") is not None:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+
+            from pysteps_tpu_torch import visualization
+
+            t0 = time.time()
+            pngs = {}
+            for label, draw in (
+                    ("precip", lambda ax: visualization.plot_precip_field(
+                        lead[0], units="dBZ", geodata=fc_meta, ax=ax)),
+                    ("motion", lambda ax: visualization.motion_plot(
+                        velocity, geodata=fc_meta, ax=ax))):
+                fig, ax = plt.subplots()
+                draw(ax)
+                png = os.path.join(tmp, f"{label}.png")
+                fig.savefig(png, dpi=60)
+                plt.close(fig)
+                pngs[label] = os.path.getsize(png)
+                if pngs[label] == 0:
+                    raise AssertionError(f"IO: the {label} plot is empty")
+            secs["plots"] = time.time() - t0
+
+        # the motion-perturbation analysis over the archive's last dates,
+        # Lucas-Kanade on the card, and the fit of its growth curves
+        t0 = time.time()
+        results = run_vel_pert_analysis.run_analysis(
+            when - datetime.timedelta(minutes=5 * (IO_VP_DATES - 1)), when, source,
+            "lucaskanade", IO_VP_MAX_LEAD, num_prev_files=2)
+        p_par, p_perp = fit_vel_pert_params.fit_parameters(results)
+        secs["vel_pert"] = time.time() - t0
+        if p_par is None or not (np.isfinite(p_par).all() and np.isfinite(p_perp).all()):
+            raise AssertionError(f"IO: fitted perturbation parameters {p_par}, {p_perp}")
+    emit({"phase": "path IO", "shape": [N_MEMBERS, N_LEADS, SIDE, SIDE], "exporter": "npz",
+          "seconds": secs, "file_bytes": size, "max_memory_allocated": peak,
+          "leads_bit_equal_to_callback": N_LEADS, "finite_fraction_last_lead": finite,
+          "card_tensors_exported": tensor_dtypes, "png_bytes": pngs,
+          "plots": "drawn" if pngs else "not drawn: matplotlib is not installed",
+          "vel_pert": {"lead_times": sorted(results), "p_par": [float(v) for v in p_par],
+                       "p_perp": [float(v) for v in p_perp]},
+          "launches": launches, "device": name, "nvidia_smi": smi})
+    return launches
+
+
 def _leaves(x):
     if isinstance(x, dict):
         return [v for k in sorted(x) for v in _leaves(x[k])]
@@ -3241,6 +3441,7 @@ def main():
     by_path.update(phase_blending(name, smi))
     by_path.update(phase_parallel(name, smi, captured["forecast_last_lead"]))
     phase_native(name, smi)
+    by_path["IO"] = phase_io(name, smi)
     for rec in recs:
         rec["launches"] = by_path[rec["path"]][rec["counter"]]
         rec["launches_by_path"] = {k: v[rec["counter"]] for k, v in by_path.items()}

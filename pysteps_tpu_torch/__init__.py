@@ -12,15 +12,23 @@ Device rule: entry points run on ``"cuda"`` unless the caller passes
 ``device="cpu"`` (or CPU tensors).  A kernel wrapper given a CUDA tensor
 launches its kernel or raises; its plain PyTorch version runs only for CPU
 tensors.
+
+The host boundary (``io``, ``datasets``, ``visualization``, ``scripts``)
+reads and writes numpy: importers return numpy arrays and metadata dicts,
+and the exporters and plots take numpy or tensors on any device, which they
+read back to the host once.  ``visualization`` is not imported here, so
+matplotlib stays optional.
 """
 
 from pysteps_tpu_torch import (  # noqa: F401
     blending,
     cascade,
     config,
+    datasets,
     downscaling,
     extrapolation,
     feature,
+    io,
     motion,
     noise,
     nowcasts,

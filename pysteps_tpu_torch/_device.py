@@ -41,3 +41,14 @@ def as_device_tensor(x, device=None, dtype=None):
     if isinstance(x, np.ndarray) and any(s < 0 for s in x.strides):
         x = np.ascontiguousarray(x)
     return torch.as_tensor(x, dtype=dtype, device=device_of(x, device))
+
+
+def to_numpy(x):
+    """``x`` as a host numpy array: a tensor on any device is copied to the
+    host once (also from the CPU, so the array never shares a buffer the
+    caller reuses), bfloat16 through float32, which numpy lacks; anything
+    else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", copy=True)
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)

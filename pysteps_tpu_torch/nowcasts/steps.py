@@ -286,8 +286,25 @@ def _member_update(
     / nested stack, whose noise is made in the spatial domain.  With
     ``keep`` (a slice) the noise of ``batch`` members is drawn and those
     members of it update ``cascades_j``; an empty ``keep`` only draws and
-    returns (None, None)."""
+    returns (None, None).  A ``keep`` of one member of a larger ``batch``
+    runs beside a neighbour of its draw (zero cascades) and returns its own
+    row: the CPU's ``irfft2`` rounds a lone plane unlike the same plane in
+    a batch of two or more, so a block's one-member chunk would not equal
+    the unsharded run's."""
     shape = noise_filt_shape
+    if keep is not None and keep.stop - keep.start == 1 < batch:
+        lo = min(keep.start, batch - 2)
+        i = keep.start - lo
+        pair = tuple(
+            torch.cat([torch.zeros_like(c), c] if i else [c, torch.zeros_like(c)])
+            for c in cascades_j
+        )
+        cascades_j, field = _member_update(
+            generator, pair, phi, noise_filt, noise_filt_shape, weights_2d,
+            noise_std_coeffs, means_last, stds_last, spectral, batch,
+            use_full_fft=use_full_fft, ssft_masks=ssft_masks, keep=slice(lo, lo + 2),
+        )
+        return tuple(c[i : i + 1] for c in cascades_j), field[i : i + 1]
     if keep is not None and keep.stop == keep.start:
         if ssft_masks is not None:
             fftgenerators._white_normal(generator, shape, batch)

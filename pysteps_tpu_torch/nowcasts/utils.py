@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pysteps_tpu_torch._device import resolve_device
+from pysteps_tpu_torch._device import resolve_device, to_numpy
 from pysteps_tpu_torch.ops.pallas_dilate import dilated_rim, dilated_rim_from_field
 
 
@@ -55,14 +55,6 @@ def compute_percentile_mask(precip, pct):
     ).long()
     thr = flat[..., i]
     return precip >= thr[..., None, None]
-
-
-def to_numpy(x):
-    """``x`` as a host numpy array: a tensor is copied once (also from the
-    CPU, so the array never shares a buffer the caller reuses)."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
-    return np.asarray(x)
 
 
 def stream_leads(out, n_leads, callback):

@@ -14,7 +14,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 # chip_smoke.py, the checks it shares with the card tests and the module
 # the spawned ranks of the parallel tests import
-PORT_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py")) + [
+PACKAGE_FILES = sorted((ROOT / "pysteps_tpu_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "torch_blending_checks.py",
     ROOT / "tests" / "torch_parallel_workers.py"]
 
@@ -40,6 +41,40 @@ def test_no_jax_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def _edits_sys_path(tree):
+    """Whether the module calls a method of ``sys.path`` or assigns to it
+    (or to a slice of it)."""
+    def is_sys_path(node):
+        return (isinstance(node, ast.Attribute) and node.attr == "path"
+                and isinstance(node.value, ast.Name) and node.value.id == "sys")
+
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                and is_sys_path(node.func.value)):
+            return True
+        if isinstance(node, (ast.Assign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                if is_sys_path(t) or (isinstance(t, ast.Subscript) and is_sys_path(t.value)):
+                    return True
+    return False
+
+
+@pytest.mark.parametrize("path", PACKAGE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_package_does_not_touch_sys_path(path):
+    """No module of the package inserts into ``sys.path`` (the JAX
+    package's ``datasets`` reaches into the test tree so; the port keeps its
+    own generator)."""
+    assert not _edits_sys_path(ast.parse(path.read_text(), filename=str(path)))
+
+
+def test_sys_path_check_sees_edits():
+    for code in ("import sys\nsys.path.insert(0, 'x')", "import sys\nsys.path[:0] = ['x']",
+                 "import sys\nsys.path.append('x')", "import sys\nsys.path += ['x']"):
+        assert _edits_sys_path(ast.parse(code)), code
+    assert not _edits_sys_path(ast.parse("import os\nos.path.join('a', 'b')"))
+
+
 def test_forbidden_names_tell_the_prefix_apart():
     assert _forbidden("pysteps_tpu.ops.warp") and _forbidden("jax.numpy")
     assert _forbidden("optax")
@@ -60,6 +95,23 @@ out = nowcasts.get_method("steps")(
     device="cpu",
 )
 assert tuple(out.shape) == (2, 2, 32, 32), out.shape
+# the forecast through the exporter and back, the plots and the scripts
+import datetime, tempfile
+import pysteps_tpu_torch
+from pysteps_tpu_torch import io
+from pysteps_tpu_torch.scripts import fit_vel_pert_params, run_vel_pert_analysis
+d = tempfile.mkdtemp()
+meta = {"unit": "dBZ", "x1": 0.0, "x2": 32.0, "y1": 0.0, "y2": 32.0, "yorigin": "upper"}
+exp = io.get_method("netcdf", "exporter")(d, "fc", datetime.datetime(2026, 8, 17), 5, 2,
+                                          (32, 32), meta, n_ens_members=2)
+io.export_forecast_dataset(out, exp)
+io.close_forecast_files(exp)
+back, _ = io.nowcast_importers.import_netcdf_pysteps(d + "/fc.nc", onerror="raise")
+assert np.array_equal(back, out.numpy(), equal_nan=True)
+import matplotlib
+matplotlib.use("Agg")
+from pysteps_tpu_torch import visualization
+visualization.plot_precip_field(out[0, -1], units="dBZ")
 assert "jax" not in sys.modules and "pysteps_tpu" not in sys.modules
 print("ok")
 """
@@ -359,14 +411,52 @@ def test_numpy_input_goes_to_cuda_by_default(name, monkeypatch):
         call(None)
 
 
+# modules imported in a fresh process with pandas, matplotlib and h5py
+# hidden: the package itself (it imports io and datasets), the modules it
+# does not import, and an importer run without h5py
+_FRESH_PROCESS = {
+    "pysteps_tpu_torch": "import pysteps_tpu_torch as m; m.io.get_method('npz', 'importer')",
+    "pysteps_tpu_torch.decorators": "import pysteps_tpu_torch.decorators",
+    "pysteps_tpu_torch.scripts.run_vel_pert_analysis":
+        "import pysteps_tpu_torch.scripts.run_vel_pert_analysis",
+    "pysteps_tpu_torch.scripts.fit_vel_pert_params":
+        "import pysteps_tpu_torch.scripts.fit_vel_pert_params",
+}
+
+
 @pytest.mark.parametrize("module", ["pysteps_tpu_torch.feature.tstorm",
                                     "pysteps_tpu_torch.tracking.tdating",
                                     "pysteps_tpu_torch.verification.plots",
-                                    "pysteps_tpu_torch.verification.salscores"])
+                                    "pysteps_tpu_torch.verification.salscores",
+                                    *_FRESH_PROCESS])
 def test_host_modules_import_without_pandas_and_matplotlib(module, monkeypatch):
     """tstorm, tdating, SAL and the plots import with pandas and
-    matplotlib hidden; tstorm's centroids and labels run without them."""
+    matplotlib hidden; tstorm's centroids and labels run without them.
+    The package, its decorators and scripts import in a fresh process with
+    h5py hidden as well, and an importer that needs h5py says so."""
     import importlib
+
+    if module in _FRESH_PROCESS:
+        code = """
+import sys
+for name in ("pandas", "matplotlib", "matplotlib.pyplot", "h5py"):
+    sys.modules[name] = None
+""" + _FRESH_PROCESS[module] + """
+from pysteps_tpu_torch.io import importers
+try:
+    importers.import_odim_hdf5("missing.h5")
+except ImportError as err:
+    assert "h5py" in str(err), err
+else:
+    raise AssertionError("an HDF5 importer ran without h5py")
+assert "jax" not in sys.modules and "pandas" not in [m for m in sys.modules if sys.modules[m]]
+print("ok")
+"""
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                             text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.strip().endswith("ok")
+        return
 
     for name in ("pandas", "matplotlib", "matplotlib.pyplot"):
         monkeypatch.setitem(sys.modules, name, None)
@@ -397,6 +487,14 @@ from pysteps_tpu_torch import native
 assert native.get_lib() is not None
 out = native.radolan_decode(np.arange(16, dtype=np.uint16), 4)
 assert out.shape == (4, 4) and out.dtype == np.float32
+# the io importer that decodes through it
+import os, tempfile
+from pysteps_tpu_torch.io import importers
+path = os.path.join(tempfile.mkdtemp(), "ry.bin")
+with open(path, "wb") as f:
+    f.write(b"RY201608171200 GP    4x    4" + b"\x03" + np.arange(16, dtype="<u2").tobytes())
+precip, _, meta = importers.import_dwd_radolan(path)
+assert np.array_equal(precip, out) and meta["institution"] == "DWD"
 assert "jax" not in sys.modules and "pysteps_tpu" not in sys.modules
 print("ok")
 """
