@@ -7,10 +7,11 @@
   (``extrap_kwargs["max_disp"]``: JAX's CPU run takes ``_axis_resample``,
   the port the plain versions of K1 and K4, the card's kernels' CPU
   versions); also with noise and the resampled CDF target, on JAX's
-  per-member draws handed over.
+  per-member draws handed over, and with SPN weights unmatched.
 - ``forecast`` end to end on deterministic configurations (no noise, no
   resampling of the target), value by value with identical NaN sets,
-  over the branches of ``tests/test_blending.py``.
+  over the branches of ``tests/test_blending.py``; with SPN weights on
+  JAX's weights handed over, the weights held on their own (``spn_run``).
 
 Without a CDF match the outputs are held within 1e-5 x span at every
 pixel.  The loop ends in the exact CDF match (two stable sorts), which
@@ -126,17 +127,28 @@ def _port_scan(rec, **kw):
         use_noise=rec["use_noise"], **kw)
 
 
-@pytest.mark.parametrize("branch", ["gather", "shift"])
+SCAN_BRANCHES = {
+    "gather": {},
+    "shift": {"extrap_kwargs": {"max_disp": 12}},
+    # SPN's weights reach +-670 (see ``spn_run``): the blend multiplies
+    # the rounding of the init's cascades by them (1.6e-5 x span from the
+    # port's own init with JAX's weights), so the unmatched SPN output is
+    # held from JAX's init
+    "spn_unmatched": dict(weights_method="spn", probmatching_method=None),
+}
+
+
+@pytest.mark.parametrize("branch", list(SCAN_BRANCHES))
 def test_scan_from_jax_init(data, skill_dir, branch, monkeypatch):
     db, velocity, nwp = data
     rec = _capture(monkeypatch)
-    extra = {"extrap_kwargs": {"max_disp": 12}} if branch == "shift" else {}
+    extra = SCAN_BRANCHES[branch]
     ref = np.asarray(jblending.get_method("steps")(
         db[:3], nwp[None], velocity, velocity[None], T, 5, outdir_path_skill=skill_dir,
-        **DET, **extra))
+        **dict(DET, **extra)))
     assert rec["max_disp"] == (12 if branch == "shift" else None)
     out = _port_scan(rec)
-    _held(out.numpy(), ref)
+    _held(out.numpy(), ref, matched=extra.get("probmatching_method", "cdf") == "cdf")
 
 
 def _jax_draws(rec, m, n):
@@ -212,15 +224,83 @@ def _branch_inputs(data, kw):
     return precip, nwp_in, vel_in, kw
 
 
-@pytest.mark.parametrize("branch", list(BRANCHES))
-def test_forecast_deterministic(data, skill_dir, branch):
+def _forecasts(data, skill_dir, branch):
+    """JAX's and the port's forecast of ``branch`` (numpy, torch)."""
     precip, nwp_in, vel_in, kw = _branch_inputs(data, BRANCHES[branch])
     args = (precip, nwp_in, data[1], vel_in, T, 5)
     kw = dict(DET, outdir_path_skill=skill_dir, **kw)
     ref = np.asarray(jblending.get_method("steps")(*args, **kw))
-    out = tblending.get_method("steps")(*args, device="cpu", **kw)
+    return ref, tblending.get_method("steps")(*args, device="cpu", **kw)
+
+
+@pytest.fixture(scope="module")
+def spn_run(data, skill_dir):
+    """The ``spn`` branch, with SPN's weights as JAX computes them handed
+    to the port.  SPN2013's weights are the inverse covariance of the
+    radar and NWP cascades times their lead-time correlations; on the
+    first level the two cascades correlate at 0.99994, the covariance's
+    condition number is 3.3e4 (3.2e3 and 4.9e2 on the next two levels)
+    and the weights are -668.8 and +669.8.  The packages' float32
+    rounding moves the correlations by up to 1.6e-6 and the covariances
+    by up to 4e-8, and the weights by up to 4.8e-3 (1.1e-3 with JAX's
+    correlations handed over: the covariances alone move them as much).
+    So the weights are held on their inputs and their code, and the loop
+    on JAX's weights.  Records JAX's (correlations, covariance) pairs and
+    weights, the port's pairs, and both forecasts."""
+    jax_pairs, jax_weights, port_pairs = [], [], []
+    j_spn = jsteps.calculate_weights_spn
+
+    def jax_recording(correlations, covariance):
+        jax_pairs.append((np.array(correlations), np.array(covariance)))
+        jax_weights.append(j_spn(correlations, covariance))
+        return jax_weights[-1]
+
+    def port_handed_jax_weights(correlations, covariance):
+        port_pairs.append((np.array(correlations), np.array(covariance)))
+        return jax_weights[len(port_pairs) - 1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsteps, "calculate_weights_spn", jax_recording)
+        mp.setattr(tsteps, "calculate_weights_spn", port_handed_jax_weights)
+        ref, out = _forecasts(data, skill_dir, "spn")
+    assert len(port_pairs) == len(jax_pairs) == T * DET["n_cascade_levels"]
+    return dict(ref=ref, out=out, jax_pairs=jax_pairs, jax_weights=jax_weights,
+                port_pairs=port_pairs)
+
+
+@pytest.mark.parametrize("branch", list(BRANCHES))
+def test_forecast_deterministic(data, skill_dir, branch, request):
+    if branch == "spn":
+        run = request.getfixturevalue("spn_run")
+        ref, out = run["ref"], run["out"]
+    else:
+        ref, out = _forecasts(data, skill_dir, branch)
     assert out.device.type == "cpu" and out.dtype == torch.float32
-    _held(out.numpy(), ref, matched=kw.get("probmatching_method", "cdf") == "cdf")
+    _held(out.numpy(), ref,
+          matched=BRANCHES[branch].get("probmatching_method", "cdf") == "cdf")
+
+
+def test_spn_weights_equal_jax_on_its_inputs(spn_run):
+    """The port's SPN weights equal JAX's bit for bit on each (correlations,
+    covariance) pair of JAX's forecast."""
+    for (correlations, covariance), ref in zip(spn_run["jax_pairs"], spn_run["jax_weights"]):
+        np.testing.assert_array_equal(tsteps.calculate_weights_spn(correlations, covariance),
+                                      ref)
+    assert np.linalg.cond(spn_run["jax_pairs"][0][1]) > 1e4
+
+
+# the inputs of the SPN weights (correlations and covariances near 1):
+# within 32 float32 ulps of 1 (measured 1.6e-6 and 4e-8)
+SPN_INPUT_TOL = 32 * float(np.finfo(np.float32).eps)
+
+
+def test_spn_weight_inputs_within_rounding(spn_run):
+    """The port's lead-time correlations (the extrapolation's from its AR
+    fit, the NWP's from its skill at t = 0) and its radar-NWP covariances,
+    the inputs of each SPN weight, against JAX's."""
+    for (c_ref, cov_ref), (c, cov) in zip(spn_run["jax_pairs"], spn_run["port_pairs"]):
+        np.testing.assert_allclose(c, c_ref, rtol=0, atol=SPN_INPUT_TOL)
+        np.testing.assert_allclose(cov, cov_ref, rtol=0, atol=SPN_INPUT_TOL)
 
 
 def test_forecast_external_nowcast(data, skill_dir):
