@@ -399,7 +399,7 @@ class EnKFCombinationNowcaster:
     def compute_forecast(self):
         cfg = self.config
         dev = self.device
-        t0 = time.time()
+        t0 = time.perf_counter()
         leadtimes, corr_leadtimes = self._resolve_leadtimes()
         n_steps = leadtimes.size
 
@@ -537,8 +537,8 @@ class EnKFCombinationNowcaster:
         outputs = [btf0(nwc, nwp_mapped[:, 0])] if self.return_output else []
         if self.device.type == "cuda":
             torch.cuda.synchronize(dev)
-        init_time = time.time() - t0
-        t_loop0 = time.time()
+        init_time = time.perf_counter() - t0
+        t_loop0 = time.perf_counter()
 
         # the schedule: each step's correction flag and NWP indices
         t_corr = 0
@@ -567,7 +567,7 @@ class EnKFCombinationNowcaster:
         if self.device.type == "cuda":
             torch.cuda.synchronize(dev)
         if self.measure_time:
-            return result, init_time, time.time() - t_loop0
+            return result, init_time, time.perf_counter() - t_loop0
         return result
 
 

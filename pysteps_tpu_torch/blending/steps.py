@@ -82,6 +82,7 @@ from pysteps_tpu_torch.postprocessing import probmatching
 from pysteps_tpu_torch.utils import tapering
 from pysteps_tpu_torch.utils.arrays import _nanmin
 from pysteps_tpu_torch.utils.check_norain import check_norain
+from pysteps_tpu_torch.utils.profiling import annotate
 
 # the largest static displacement bound of the shift path (pixels)
 _MAX_DISP = 48
@@ -441,112 +442,125 @@ def _blending_scan(
     need_warp = (not external) or use_noise
     t0 = 0
     for t in range(int_steps):
-        # AR evolution of the extrapolation and noise cascades
-        if not external:
-            ext_lags = _ar_step_lags(ext_lags, phi)
-        if use_noise:
-            eps = fftgenerators._generate_fft_noise(
-                gen, params.noise_filter, (m, n), E_draw, domain="spatial", standardize=False,
-                keep=keep)
-            eps_levels, _, _ = decompose_core(eps, params.weights_2d, normalize=True)
-            eps_levels = eps_levels * params.noise_std_coeffs[:, None, None]
-            noise_lags = _ar_step_lags(noise_lags, phi, eps=eps_levels)
+        with annotate("pst.lead"):
+            with annotate("pst.update"):
+                # AR evolution of the extrapolation and noise cascades
+                if not external:
+                    ext_lags = _ar_step_lags(ext_lags, phi)
+                if use_noise:
+                    eps = fftgenerators._generate_fft_noise(
+                        gen, params.noise_filter, (m, n), E_draw, domain="spatial",
+                        standardize=False, keep=keep)
+                    eps_levels, _, _ = decompose_core(eps, params.weights_2d, normalize=True)
+                    eps_levels = eps_levels * params.noise_std_coeffs[:, None, None]
+                    noise_lags = _ar_step_lags(noise_lags, phi, eps=eps_levels)
 
-        # the member's blended advection, BPS-perturbed along its direction
-        vel_j = vel_all[t].index_select(0, mm)
-        if vel_pert:
-            t_total = np.float32((t + 1.0) * timestep_min)
-            a1, b1, c1 = (np.float32(v) for v in p_par)
-            a2, b2, c2 = (np.float32(v) for v in p_perp)
-            g_par = float(a1 * t_total**b1 + c1)
-            g_perp = float(a2 * t_total**b2 + c2)
-            nv = torch.linalg.vector_norm(vel_j, dim=1, keepdim=True)
-            v_n = torch.where(nv > 1e-12, vel_j / torch.clamp(nv, min=1e-12), 0.0)
-            v_perp = torch.stack([-v_n[:, 1], v_n[:, 0]], dim=1)
-            vel_j = vel_j + (eps_par * g_par * v_n + eps_perp * g_perp * v_perp) / vsf
+                # blend weights and recomposition coefficients (E, k)
+                w = params.weights[t].index_select(0, mm)  # (E, 3, k)
+                wsum = torch.clamp(w.sum(dim=1), min=1e-12)
+                if external:
+                    r_means = params.ext_means[t].expand(E, k_levels)
+                    r_sigmas = params.ext_sigmas[t].expand(E, k_levels)
+                else:
+                    r_means = params.radar_means.expand(E, k_levels)
+                    r_sigmas = params.radar_sigmas.expand(E, k_levels)
+                means = torch.stack([r_means, params.nwp_means[t].index_select(0, mm)])
+                sigmas = torch.stack([r_sigmas, params.nwp_sigmas[t].index_select(0, mm)])
+                c_means, c_sigmas = blend_means_sigmas(means, sigmas, w.transpose(0, 1))
+                a_ext = w[:, 0] * c_sigmas / wsum
+                a_nwp = w[:, 1] * c_sigmas / wsum
+                a_noi = w[:, 2] * c_sigmas / wsum
 
-        # blend weights and recomposition coefficients (E, k)
-        w = params.weights[t].index_select(0, mm)  # (E, 3, k)
-        wsum = torch.clamp(w.sum(dim=1), min=1e-12)
-        if external:
-            r_means = params.ext_means[t].expand(E, k_levels)
-            r_sigmas = params.ext_sigmas[t].expand(E, k_levels)
-        else:
-            r_means = params.radar_means.expand(E, k_levels)
-            r_sigmas = params.radar_sigmas.expand(E, k_levels)
-        means = torch.stack([r_means, params.nwp_means[t].index_select(0, mm)])
-        sigmas = torch.stack([r_sigmas, params.nwp_sigmas[t].index_select(0, mm)])
-        c_means, c_sigmas = blend_means_sigmas(means, sigmas, w.transpose(0, 1))
-        a_ext = w[:, 0] * c_sigmas / wsum
-        a_nwp = w[:, 1] * c_sigmas / wsum
-        a_noi = w[:, 2] * c_sigmas / wsum
+                # the Lagrangian composite: everything that is advected, weighted
+                comp = torch.zeros((E, m, n), dtype=torch.float32, device=dev)
+                if not external:
+                    comp = torch.einsum("ek,kmn->emn", a_ext, ext_lags[-1])
+                if use_noise:
+                    comp = comp + torch.einsum("ekmn,ek->emn", noise_lags[-1], a_noi)
 
-        # the Lagrangian composite: everything that is advected, weighted
-        comp = torch.zeros((E, m, n), dtype=torch.float32, device=dev)
-        if not external:
-            comp = torch.einsum("ek,kmn->emn", a_ext, ext_lags[-1])
-        if use_noise:
-            comp = comp + torch.einsum("ekmn,ek->emn", noise_lags[-1], a_noi)
+            with annotate("pst.warp"):
+                # the member's blended advection, BPS-perturbed along its direction
+                vel_j = vel_all[t].index_select(0, mm)
+                if vel_pert:
+                    t_total = np.float32((t + 1.0) * timestep_min)
+                    a1, b1, c1 = (np.float32(v) for v in p_par)
+                    a2, b2, c2 = (np.float32(v) for v in p_perp)
+                    g_par = float(a1 * t_total**b1 + c1)
+                    g_perp = float(a2 * t_total**b2 + c2)
+                    nv = torch.linalg.vector_norm(vel_j, dim=1, keepdim=True)
+                    v_n = torch.where(nv > 1e-12, vel_j / torch.clamp(nv, min=1e-12), 0.0)
+                    v_perp = torch.stack([-v_n[:, 1], v_n[:, 0]], dim=1)
+                    vel_j = vel_j + (eps_par * g_par * v_n + eps_perp * g_perp * v_perp) / vsf
 
-        if max_disp is not None:
-            disp = integrate_displacement_coarse(vel_j, disp, 1.0, max_disp=max_disp,
-                                                 coarse=coarse)
-            if need_warp:
-                disp_full = upsample_displacement(disp, (m, n), coarse)
-                comp = warp_shifted(comp, disp_full, max_disp, cval=0.0)
-        else:
-            disp = integrate_displacement(vel_j, disp, 1.0)
-            if need_warp:
-                comp = warp(comp, disp, order=1, cval=0.0)
+                if max_disp is not None:
+                    disp = integrate_displacement_coarse(vel_j, disp, 1.0, max_disp=max_disp,
+                                                         coarse=coarse)
+                    if need_warp:
+                        disp_full = upsample_displacement(disp, (m, n), coarse)
+                        comp = warp_shifted(comp, disp_full, max_disp, cval=0.0)
+                else:
+                    disp = integrate_displacement(vel_j, disp, 1.0)
+                    if need_warp:
+                        comp = warp(comp, disp, order=1, cval=0.0)
 
-        # the NWP levels enter as one contraction over (model, level): each
-        # member's coefficients sit in its model's slot
-        a_models = torch.zeros((E, nm, k_levels), dtype=torch.float32, device=dev)
-        a_models[rows, mm] = a_nwp
-        field = comp + torch.einsum("ejk,jkmn->emn", a_models, params.nwp_cascades[t])
-        field = field + c_means.sum(dim=1)[:, None, None]
-        if external:
-            field = field + torch.einsum("ekmn,ek->emn", params.ext_cascades[t, members], a_ext)
+            with annotate("pst.update"):
+                # the NWP levels enter as one contraction over (model, level):
+                # each member's coefficients sit in its model's slot
+                a_models = torch.zeros((E, nm, k_levels), dtype=torch.float32, device=dev)
+                a_models[rows, mm] = a_nwp
+                field = comp + torch.einsum("ejk,jkmn->emn", a_models, params.nwp_cascades[t])
+                field = field + c_means.sum(dim=1)[:, None, None]
+                if external:
+                    field = field + torch.einsum("ekmn,ek->emn", params.ext_cascades[t, members],
+                                                 a_ext)
 
-        # post-processing: NWP outside the radar domain, smooth transition
-        nwp_field = params.nwp_fields[t].index_select(0, mm)
-        field = torch.where(params.domain_mask, nwp_field, field)
-        field = params.smooth_mask * field + (1.0 - params.smooth_mask) * nwp_field
+                # post-processing: NWP outside the radar domain, smooth transition
+                nwp_field = params.nwp_fields[t].index_select(0, mm)
+                field = torch.where(params.domain_mask, nwp_field, field)
+                field = params.smooth_mask * field + (1.0 - params.smooth_mask) * nwp_field
 
-        fmin = torch.minimum(field.amin(dim=(-2, -1)), params.precip_min)[:, None, None]
-        if mask_method == "incremental":
-            field = fmin + (field - fmin) * mask
-            field = torch.where(field > fmin, field, fmin)
-        elif mask_method == "obs":
-            field = torch.where(mask > 0, field, fmin)
+            with annotate("pst.mask"):
+                fmin = torch.minimum(field.amin(dim=(-2, -1)), params.precip_min)[:, None, None]
+                if mask_method == "incremental":
+                    field = fmin + (field - fmin) * mask
+                    field = torch.where(field > fmin, field, fmin)
+                elif mask_method == "obs":
+                    field = torch.where(mask > 0, field, fmin)
 
-        if probmatching_method == "cdf":
-            if resample_distribution:
-                # binomial mix of the radar and NWP intensity distributions,
-                # weighted by the current extrapolation skill
-                w_d = w if keep is None else params.weights[t].index_select(0, mm_draw)
-                s0, s1 = w_d[:, 0].sum(dim=1), w_d[:, 1].sum(dim=1)
-                p_radar = s0 / torch.clamp(s0 + s1, min=1e-12)
-                pick = probmatching._bernoulli(gen, p_radar[:, None], (E_draw, m * n))
-                if keep is not None:
-                    pick = pick[keep]
-                target = torch.where(pick, rsort, nsorts[t].index_select(0, mm))
-                field = _match_cdf_targets(field, target)
-            else:
-                field = probmatching._match_cdf_presorted(field, ranked, zvalue, exact=True)
-        elif probmatching_method == "mean":
-            wet = field >= precip_thr
-            mu_fct = torch.where(wet, field, 0.0).sum(dim=(-2, -1), keepdim=True) / torch.clamp(
-                wet.sum(dim=(-2, -1), keepdim=True), min=1)
-            field = torch.where(wet, field - mu_fct + mu_obs, field)
+            with annotate("pst.match"):
+                if probmatching_method == "cdf":
+                    if resample_distribution:
+                        # binomial mix of the radar and NWP intensity
+                        # distributions, weighted by the current extrapolation
+                        # skill
+                        w_d = w if keep is None else params.weights[t].index_select(0, mm_draw)
+                        s0, s1 = w_d[:, 0].sum(dim=1), w_d[:, 1].sum(dim=1)
+                        p_radar = s0 / torch.clamp(s0 + s1, min=1e-12)
+                        pick = probmatching._bernoulli(gen, p_radar[:, None], (E_draw, m * n))
+                        if keep is not None:
+                            pick = pick[keep]
+                        target = torch.where(pick, rsort, nsorts[t].index_select(0, mm))
+                        field = _match_cdf_targets(field, target)
+                    else:
+                        field = probmatching._match_cdf_presorted(field, ranked, zvalue,
+                                                                  exact=True)
+                elif probmatching_method == "mean":
+                    wet = field >= precip_thr
+                    mu_fct = torch.where(wet, field, 0.0).sum(
+                        dim=(-2, -1), keepdim=True) / torch.clamp(
+                        wet.sum(dim=(-2, -1), keepdim=True), min=1)
+                    field = torch.where(wet, field - mu_fct + mu_obs, field)
 
-        if mask_method == "incremental":
-            mask = nowcast_utils.compute_dilated_mask(field >= precip_thr, struct_radius,
-                                                      mask_rim)
+            if mask_method == "incremental":
+                with annotate("pst.mask"):
+                    mask = nowcast_utils.compute_dilated_mask(field >= precip_thr,
+                                                              struct_radius, mask_rim)
 
-        out[:, t - t0] = field.to(out.dtype)
+            with annotate("pst.write"):
+                out[:, t - t0] = field.to(out.dtype)
         if callback is not None and (t + 1 - t0 == buf_leads or t + 1 == int_steps):
-            nowcast_utils.stream_leads(out, t + 1 - t0, callback)
+            with annotate("pst.stream"):
+                nowcast_utils.stream_leads(out, t + 1 - t0, callback)
             t0 = t + 1
     return None if callback is not None else out
 
@@ -641,154 +655,171 @@ def scan_inputs(
     arguments of the same names (a :class:`ScanInputs` on ``device``), or
     None where neither the radar nor the NWP fields rain."""
     device = resolve_device(device, precip, precip_models, velocity, velocity_models)
-    host = nowcast_utils.to_numpy
-    precip = host(precip).astype(np.float32)
-    precip_models = host(precip_models).astype(np.float32)
-    velocity = host(velocity).astype(np.float32)
-    velocity_models = host(velocity_models).astype(np.float32)
     extrap_kwargs = dict(extrap_kwargs or {})
     mask_kwargs = dict(mask_kwargs or {})
     noise_kwargs = dict(noise_kwargs or {})
     clim_kwargs = dict(clim_kwargs or {})
     filter_kwargs = filter_kwargs or {}
     int_steps, _ = _leads(timesteps)
+    host = nowcast_utils.to_numpy
+    with annotate("pst.init.norain"):
+        precip = host(precip).astype(np.float32)
+        precip_models = host(precip_models).astype(np.float32)
+        velocity = host(velocity).astype(np.float32)
+        velocity_models = host(velocity_models).astype(np.float32)
 
-    if precip_models.ndim == 3:
-        precip_models = np.repeat(precip_models[:, None], int_steps + 1, axis=1)
-    n_models = precip_models.shape[0]
-    if velocity_models.ndim == 3:
-        velocity_models = velocity_models[None]
-    m, n = precip.shape[-2:]
+        if precip_models.ndim == 3:
+            precip_models = np.repeat(precip_models[:, None], int_steps + 1, axis=1)
+        n_models = precip_models.shape[0]
+        if velocity_models.ndim == 3:
+            velocity_models = velocity_models[None]
+        m, n = precip.shape[-2:]
 
-    # the no-rain gates of radar and NWP
-    zero_radar = check_norain(precip, precip_thr, norain_thr, None, printmsg=False)
-    zero_nwp = check_norain(precip_models, precip_thr, norain_thr, None, printmsg=False)
-    if zero_radar and zero_nwp:
-        return None
+        # the no-rain gates of radar and NWP
+        zero_radar = check_norain(precip, precip_thr, norain_thr, None, printmsg=False)
+        zero_nwp = check_norain(precip_models, precip_thr, norain_thr, None, printmsg=False)
+        if zero_radar and zero_nwp:
+            return None
 
-    precip = precip[-(ar_order + 1):]
-    domain_mask = ~np.isfinite(precip[-1])
-    precip_min = float(np.nanmin(precip))
-    precip = np.where(np.isfinite(precip), precip, precip_min)
-    precip_models = np.where(np.isfinite(precip_models), precip_models, precip_min)
+        precip = precip[-(ar_order + 1):]
+        domain_mask = ~np.isfinite(precip[-1])
+        precip_min = float(np.nanmin(precip))
+        precip = np.where(np.isfinite(precip), precip, precip_min)
+        precip_models = np.where(np.isfinite(precip_models), precip_models, precip_min)
 
-    bp_filter = cascade.get_method(bandpass_filter_method)((m, n), n_cascade_levels,
-                                                           **filter_kwargs)
-    weights_2d = torch.tensor(np.asarray(bp_filter["weights_2d"]), dtype=torch.float32,
-                                 device=device)
-    precip_t = torch.as_tensor(precip, device=device)
-    velocity_t = torch.as_tensor(velocity, device=device)
-    domain_mask_t = torch.as_tensor(domain_mask, device=device)
+    with annotate("pst.init.filter"):
+        bp_filter = cascade.get_method(bandpass_filter_method)((m, n), n_cascade_levels,
+                                                               **filter_kwargs)
+        weights_2d = torch.tensor(np.asarray(bp_filter["weights_2d"]), dtype=torch.float32,
+                                  device=device)
+        precip_t = torch.as_tensor(precip, device=device)
+        velocity_t = torch.as_tensor(velocity, device=device)
+        domain_mask_t = torch.as_tensor(domain_mask, device=device)
 
     # radar cascades and AR parameters (the nowcast's machinery)
     if conditional:
         mask_thr = torch.all(precip_t >= precip_thr, dim=0)
     else:
         mask_thr = torch.ones((m, n), dtype=torch.bool, device=device)
-    precip_aligned = _lagrangian_alignment(precip_t, velocity_t)
-    cascades_full, means, stds, _, phi = _estimate_params(
-        precip_aligned, weights_2d, mask_thr, ar_order, conditional)
-    radar_means, radar_sigmas = means[-1], stds[-1]
-    window = cascades_full[:, -ar_order:]
+    with annotate("pst.init.align"):
+        precip_aligned = _lagrangian_alignment(precip_t, velocity_t)
+    with annotate("pst.init.decompose"):
+        cascades_full, means, stds, _, phi = _estimate_params(
+            precip_aligned, weights_2d, mask_thr, ar_order, conditional)
+        radar_means, radar_sigmas = means[-1], stds[-1]
+        window = cascades_full[:, -ar_order:]
 
     # every model's and lead's NWP cascade in one batched decomposition
-    nwp_levels, nwp_means_all, nwp_sigmas_all = decompose_core(
-        torch.as_tensor(precip_models[:, : int_steps + 1], device=device), weights_2d,
-        normalize=True)  # (n_models, T+1, k, m, n), (n_models, T+1, k)
+    with annotate("pst.init.copy"):
+        nwp_stack = torch.as_tensor(precip_models[:, : int_steps + 1], device=device)
+    with annotate("pst.init.nwp_decompose"):
+        nwp_levels, nwp_means_all, nwp_sigmas_all = decompose_core(
+            nwp_stack, weights_2d, normalize=True
+        )  # (n_models, T+1, k, m, n), (n_models, T+1, k)
+    del nwp_stack
 
-    # the NWP skill at t=0 against the latest radar cascade
-    rho_0 = np.stack([
-        skill_scores.spatial_correlation(cascades_full[:, -1], nwp_levels[im, 0],
-                                         domain_mask_t)
-        for im in range(n_models)
-    ])  # (n_models, k)
+    with annotate("pst.init.rho0"):
+        # the NWP skill at t=0 against the latest radar cascade
+        rho_0 = np.stack([
+            skill_scores.spatial_correlation(cascades_full[:, -1], nwp_levels[im, 0],
+                                             domain_mask_t)
+            for im in range(n_models)
+        ])  # (n_models, k)
 
-    # the per-lead weights, on the host (they do not depend on the state)
-    from pysteps_tpu_torch.config import rcparams
+    with annotate("pst.init.skill"):
+        # the per-lead weights, on the host (they do not depend on the state)
+        from pysteps_tpu_torch.config import rcparams
 
-    outdir = outdir_path_skill or rcparams["outputs"]["path_workdir"]
-    phi_np = phi.cpu().numpy()
-    weights_t = np.zeros((int_steps, n_models, 3, n_cascade_levels), np.float32)
-    rho_extrap_prev = None
-    rho_extrap = None
-    casc_last_np = host(cascades_full[:, -1]) if weights_method == "spn" else None
-    for t in range(int_steps):
-        lt = (t + 1) * float(timestep)
-        rho_extrap, rho_extrap_prev = skill_scores.lt_dependent_cor_extrapolation(
-            phi_np[:, :ar_order + 1], rho_extrap, rho_extrap_prev, ar_order)
-        for im in range(n_models):
-            rho_nwp = skill_scores.lt_dependent_cor_nwp(
-                lt, rho_0[im], outdir, n_model=im,
-                skill_kwargs={"n_models": n_models, **clim_kwargs})
-            corr = np.stack([np.asarray(rho_extrap), rho_nwp])
-            if weights_method == "bps":
-                w = calculate_weights_bps(corr)  # (3, k)
-            elif weights_method == "spn":
-                nwp_np = host(nwp_levels[im, t])
-                w = np.stack([
-                    calculate_weights_spn(
-                        corr[:, k_i],
-                        np.corrcoef(np.stack([casc_last_np[k_i].ravel(), nwp_np[k_i].ravel()])))
-                    for k_i in range(n_cascade_levels)
-                ], axis=1)
-            else:
-                raise ValueError(f"unknown weights_method {weights_method}")
-            # linear transition to full-NWP weight near the forecast end
-            if timestep_start_full_nwp_weight is not None and t + 1 > timestep_start_full_nwp_weight:
-                w = calculate_end_weights(w, t + 1, int_steps, timestep_start_full_nwp_weight)
-            weights_t[t, im] = w
+        outdir = outdir_path_skill or rcparams["outputs"]["path_workdir"]
+        phi_np = phi.cpu().numpy()
+        weights_t = np.zeros((int_steps, n_models, 3, n_cascade_levels), np.float32)
+        rho_extrap_prev = None
+        rho_extrap = None
+        casc_last_np = host(cascades_full[:, -1]) if weights_method == "spn" else None
+        for t in range(int_steps):
+            lt = (t + 1) * float(timestep)
+            rho_extrap, rho_extrap_prev = skill_scores.lt_dependent_cor_extrapolation(
+                phi_np[:, :ar_order + 1], rho_extrap, rho_extrap_prev, ar_order)
+            for im in range(n_models):
+                rho_nwp = skill_scores.lt_dependent_cor_nwp(
+                    lt, rho_0[im], outdir, n_model=im,
+                    skill_kwargs={"n_models": n_models, **clim_kwargs})
+                corr = np.stack([np.asarray(rho_extrap), rho_nwp])
+                if weights_method == "bps":
+                    w = calculate_weights_bps(corr)  # (3, k)
+                elif weights_method == "spn":
+                    nwp_np = host(nwp_levels[im, t])
+                    w = np.stack([
+                        calculate_weights_spn(
+                            corr[:, k_i],
+                            np.corrcoef(np.stack([casc_last_np[k_i].ravel(),
+                                                  nwp_np[k_i].ravel()])))
+                        for k_i in range(n_cascade_levels)
+                    ], axis=1)
+                else:
+                    raise ValueError(f"unknown weights_method {weights_method}")
+                # linear transition to full-NWP weight near the forecast end
+                if (timestep_start_full_nwp_weight is not None
+                        and t + 1 > timestep_start_full_nwp_weight):
+                    w = calculate_end_weights(w, t + 1, int_steps,
+                                              timestep_start_full_nwp_weight)
+                weights_t[t, im] = w
 
-    # the blended advection of each lead, weighted by the second cascade
-    # level's weights; static (n_models, 2, m, n) or time-varying
-    # (n_models, T+1, 2, m, n) model velocities
-    vel_w_extrap = weights_t[:, :, 0, 1]  # (T, n_models)
-    vel_w_nwp = weights_t[:, :, 1, 1]
-    tot = np.maximum(vel_w_extrap + vel_w_nwp, 1e-12)
-    if velocity_models.ndim == 5:
-        idx = np.clip(np.arange(1, int_steps + 1), 0, velocity_models.shape[1] - 1)
-        vm_t = np.swapaxes(velocity_models[:, idx], 0, 1)  # (T, n_models, 2, m, n)
-    else:
-        vm_t = velocity_models[None, :, :2]
-    velocity_blend = (
-        vel_w_extrap[..., None, None, None] * velocity[None, None]
-        + vel_w_nwp[..., None, None, None] * vm_t
-    ) / tot[..., None, None, None]
+    with annotate("pst.init.velocity"):
+        # the blended advection of each lead, weighted by the second cascade
+        # level's weights; static (n_models, 2, m, n) or time-varying
+        # (n_models, T+1, 2, m, n) model velocities
+        vel_w_extrap = weights_t[:, :, 0, 1]  # (T, n_models)
+        vel_w_nwp = weights_t[:, :, 1, 1]
+        tot = np.maximum(vel_w_extrap + vel_w_nwp, 1e-12)
+        if velocity_models.ndim == 5:
+            idx = np.clip(np.arange(1, int_steps + 1), 0, velocity_models.shape[1] - 1)
+            vm_t = np.swapaxes(velocity_models[:, idx], 0, 1)  # (T, n_models, 2, m, n)
+        else:
+            vm_t = velocity_models[None, :, :2]
+        velocity_blend = (
+            vel_w_extrap[..., None, None, None] * velocity[None, None]
+            + vel_w_nwp[..., None, None, None] * vm_t
+        ) / tot[..., None, None, None]
 
-    # the noise filter, built on the device from the aligned inputs
-    if noise_method == "nonparametric" and set(noise_kwargs) <= {"win_fun"}:
-        win_fun = noise_kwargs.get("win_fun", "tukey")
-        taper = torch.as_tensor(
-            tapering.compute_window_function(m, n, win_fun) if win_fun is not None
-            else np.ones((m, n)), dtype=torch.float32, device=device)
-        noise_filt = fftgenerators.nonparam_filter_core(precip_aligned, taper).to(torch.float32)
-        pert_gen = {"field": noise_filt, "input_shape": (m, n), "use_full_fft": False}
-    elif noise_method is not None:
-        init_noise, _ = noise.get_method(noise_method)
-        pert_gen = init_noise(precip_aligned, **noise_kwargs)
-        noise_filt = torch.as_tensor(pert_gen["field"], dtype=torch.float32, device=device)
-        if noise_filt.ndim != 2:
-            raise ValueError(f"noise_method {noise_method} gives no global filter")
-        if pert_gen.get("use_full_fft"):
-            # the loop multiplies rfft2 half-planes; a full-plane filter
-            # magnitude is Hermitian-symmetric, so its left half is the
-            # half-plane filter
-            noise_filt = noise_filt[:, : n // 2 + 1]
-    else:
-        noise_filt = torch.ones((m, n // 2 + 1), dtype=torch.float32, device=device)
-    noise_std_coeffs = torch.ones(n_cascade_levels, dtype=torch.float32, device=device)
-    if noise_stddev_adj == "auto" and noise_method is not None:
-        gen_adj = torch.Generator(device=device)
-        gen_adj.manual_seed((seed or 42) + 1)
-        noise_std_coeffs = noise.utils.compute_noise_stddev_adjs(
-            precip_t[-1], precip_thr, precip_min, bp_filter, None, pert_gen, None, 20,
-            conditional=True, generator=gen_adj).to(torch.float32)
-    elif noise_stddev_adj == "fixed":
-        noise_std_coeffs = torch.tensor(
-            [1.0 / (0.75 + 0.09 * k) for k in range(1, n_cascade_levels + 1)],
-            dtype=torch.float32, device=device)
+    with annotate("pst.init.noise"):
+        # the noise filter, built on the device from the aligned inputs
+        if noise_method == "nonparametric" and set(noise_kwargs) <= {"win_fun"}:
+            win_fun = noise_kwargs.get("win_fun", "tukey")
+            taper = torch.as_tensor(
+                tapering.compute_window_function(m, n, win_fun) if win_fun is not None
+                else np.ones((m, n)), dtype=torch.float32, device=device)
+            noise_filt = fftgenerators.nonparam_filter_core(precip_aligned, taper).to(
+                torch.float32)
+            pert_gen = {"field": noise_filt, "input_shape": (m, n), "use_full_fft": False}
+        elif noise_method is not None:
+            init_noise, _ = noise.get_method(noise_method)
+            pert_gen = init_noise(precip_aligned, **noise_kwargs)
+            noise_filt = torch.as_tensor(pert_gen["field"], dtype=torch.float32, device=device)
+            if noise_filt.ndim != 2:
+                raise ValueError(f"noise_method {noise_method} gives no global filter")
+            if pert_gen.get("use_full_fft"):
+                # the loop multiplies rfft2 half-planes; a full-plane filter
+                # magnitude is Hermitian-symmetric, so its left half is the
+                # half-plane filter
+                noise_filt = noise_filt[:, : n // 2 + 1]
+        else:
+            noise_filt = torch.ones((m, n // 2 + 1), dtype=torch.float32, device=device)
+        noise_std_coeffs = torch.ones(n_cascade_levels, dtype=torch.float32, device=device)
+        if noise_stddev_adj == "auto" and noise_method is not None:
+            gen_adj = torch.Generator(device=device)
+            gen_adj.manual_seed((seed or 42) + 1)
+            noise_std_coeffs = noise.utils.compute_noise_stddev_adjs(
+                precip_t[-1], precip_thr, precip_min, bp_filter, None, pert_gen, None, 20,
+                conditional=True, generator=gen_adj).to(torch.float32)
+        elif noise_stddev_adj == "fixed":
+            noise_std_coeffs = torch.tensor(
+                [1.0 / (0.75 + 0.09 * k) for k in range(1, n_cascade_levels + 1)],
+                dtype=torch.float32, device=device)
 
     # the member-model pairing
-    precip_models_t = torch.as_tensor(precip_models[:, 1: int_steps + 1], device=device)
+    with annotate("pst.init.copy"):
+        precip_models_t = torch.as_tensor(precip_models[:, 1: int_steps + 1], device=device)
     if blend_nwp_members:
         member_model = torch.zeros(n_ens_members, dtype=torch.int64, device=device)
         # all models as one pseudo-model: their normalized cascades,
@@ -802,56 +833,60 @@ def scan_inputs(
     else:
         member_model = torch.arange(n_ens_members, device=device) % n_models
 
-    # masks
-    mask_rim = int(mask_kwargs.get("mask_rim", 10))
-    struct_radius = 1
-    if timestep is not None and kmperpixel:
-        struct_radius = max(
-            int((mask_kwargs.get("mask_f", 1.0) * timestep / kmperpixel - 1) / 2.0), 1)
-    wet = precip_t[-1] >= precip_thr
-    if mask_method == "incremental":
-        mask_prec_init = nowcast_utils.compute_dilated_mask(
-            wet[None], struct_radius, mask_rim)[0].to(torch.float32)
-    elif mask_method == "obs":
-        mask_prec_init = wet.to(torch.float32)
-    else:
-        mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=device)
+    with annotate("pst.init.mask"):
+        # masks
+        mask_rim = int(mask_kwargs.get("mask_rim", 10))
+        struct_radius = 1
+        if timestep is not None and kmperpixel:
+            struct_radius = max(
+                int((mask_kwargs.get("mask_f", 1.0) * timestep / kmperpixel - 1) / 2.0), 1)
+        wet = precip_t[-1] >= precip_thr
+        if mask_method == "incremental":
+            mask_prec_init = nowcast_utils.compute_dilated_mask(
+                wet[None], struct_radius, mask_rim)[0].to(torch.float32)
+        elif mask_method == "obs":
+            mask_prec_init = wet.to(torch.float32)
+        else:
+            mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=device)
 
-    # the smooth radar-domain mask
-    if smooth_radar_mask_range and np.any(domain_mask):
-        smooth_mask = compute_smooth_dilated_mask(
-            ~domain_mask_t, max_padding_size_in_px=int(smooth_radar_mask_range))
-    else:
-        smooth_mask = torch.ones((m, n), dtype=torch.float32, device=device)
+        # the smooth radar-domain mask
+        if smooth_radar_mask_range and np.any(domain_mask):
+            smooth_mask = compute_smooth_dilated_mask(
+                ~domain_mask_t, max_padding_size_in_px=int(smooth_radar_mask_range))
+        else:
+            smooth_mask = torch.ones((m, n), dtype=torch.float32, device=device)
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed if seed is not None else 42)
+    with annotate("pst.init.bps"):
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed if seed is not None else 42)
 
-    # velocity perturbations: one BPS draw pair a member
-    vel_pert = vel_pert_method is not None
-    if vel_pert:
-        vpk = dict(vel_pert_kwargs or {})
-        p_par = tuple(float(v) for v in vpk.get("p_par", get_default_params_bps_par()))
-        p_perp = tuple(float(v) for v in vpk.get("p_perp", get_default_params_bps_perp()))
-        vsf = 60.0 / (timestep * (1.0 / kmperpixel)) if (timestep and kmperpixel) else 1.0
-        gen_vel = torch.Generator(device=device)
-        gen_vel.manual_seed((seed if seed is not None else 42) + 7)
-        eps_par = _laplace(gen_vel, (n_ens_members,))
-        eps_perp = _laplace(gen_vel, (n_ens_members,))
-    else:
-        p_par = p_perp = None
-        vsf = 1.0
-        eps_par = eps_perp = None
+        # velocity perturbations: one BPS draw pair a member
+        vel_pert = vel_pert_method is not None
+        if vel_pert:
+            vpk = dict(vel_pert_kwargs or {})
+            p_par = tuple(float(v) for v in vpk.get("p_par", get_default_params_bps_par()))
+            p_perp = tuple(float(v) for v in vpk.get("p_perp", get_default_params_bps_perp()))
+            vsf = 60.0 / (timestep * (1.0 / kmperpixel)) if (timestep and kmperpixel) else 1.0
+            gen_vel = torch.Generator(device=device)
+            gen_vel.manual_seed((seed if seed is not None else 42) + 7)
+            eps_par = _laplace(gen_vel, (n_ens_members,))
+            eps_perp = _laplace(gen_vel, (n_ens_members,))
+        else:
+            p_par = p_perp = None
+            vsf = 1.0
+            eps_par = eps_perp = None
 
-    velocity_blend = torch.as_tensor(velocity_blend, dtype=torch.float32, device=device)
-    # the card's path takes the static bound; the CPU the exact gather
-    if device.type == "cpu":
-        max_disp = None
-    else:
-        max_disp = _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp,
-                               vsf, (m, n))
-    if "max_disp" in extrap_kwargs:
-        max_disp = extrap_kwargs["max_disp"]
+    with annotate("pst.init.copy"):
+        velocity_blend = torch.as_tensor(velocity_blend, dtype=torch.float32, device=device)
+    with annotate("pst.init.velocity"):
+        # the card's path takes the static bound; the CPU the exact gather
+        if device.type == "cpu":
+            max_disp = None
+        else:
+            max_disp = _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par,
+                                   p_perp, vsf, (m, n))
+        if "max_disp" in extrap_kwargs:
+            max_disp = extrap_kwargs["max_disp"]
 
     # the external nowcast, decomposed per member and lead
     ext_cascades = ext_means = ext_sigmas = None
@@ -866,19 +901,20 @@ def scan_inputs(
         ext_means = ext_means_em.mean(dim=0)  # (T, k)
         ext_sigmas = ext_sigmas_em.mean(dim=0)
 
-    params = StepsBlendingParams(
-        phi=phi.to(torch.float32), weights=torch.as_tensor(weights_t, device=device),
-        nwp_cascades=nwp_levels[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
-        nwp_means=nwp_means_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
-        nwp_sigmas=nwp_sigmas_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
-        radar_means=radar_means, radar_sigmas=radar_sigmas, noise_filter=noise_filt,
-        noise_std_coeffs=noise_std_coeffs, velocity_blend=velocity_blend.contiguous(),
-        nwp_fields=precip_models_t.transpose(0, 1).contiguous(), member_model=member_model,
-        weights_2d=weights_2d, precip_last=precip_t[-1],
-        precip_min=torch.tensor(precip_min, dtype=torch.float32, device=device),
-        domain_mask=domain_mask_t, smooth_mask=smooth_mask.to(torch.float32),
-        ext_cascades=ext_cascades, ext_means=ext_means, ext_sigmas=ext_sigmas,
-    )
+    with annotate("pst.init.copy"):
+        params = StepsBlendingParams(
+            phi=phi.to(torch.float32), weights=torch.as_tensor(weights_t, device=device),
+            nwp_cascades=nwp_levels[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
+            nwp_means=nwp_means_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
+            nwp_sigmas=nwp_sigmas_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
+            radar_means=radar_means, radar_sigmas=radar_sigmas, noise_filter=noise_filt,
+            noise_std_coeffs=noise_std_coeffs, velocity_blend=velocity_blend.contiguous(),
+            nwp_fields=precip_models_t.transpose(0, 1).contiguous(), member_model=member_model,
+            weights_2d=weights_2d, precip_last=precip_t[-1],
+            precip_min=torch.tensor(precip_min, dtype=torch.float32, device=device),
+            domain_mask=domain_mask_t, smooth_mask=smooth_mask.to(torch.float32),
+            ext_cascades=ext_cascades, ext_means=ext_means, ext_sigmas=ext_sigmas,
+        )
     state = StepsBlendingState(
         cascades=window.to(torch.float32), noise_cascades=None, precip_mask=mask_prec_init,
         generator=generator, eps_par=eps_par, eps_perp=eps_perp,
@@ -890,7 +926,9 @@ def scan_inputs(
         vel_pert=vel_pert, p_par=p_par, p_perp=p_perp, vsf=vsf,
         timestep_min=float(timestep) if timestep else 1.0, use_noise=noise_method is not None,
     )
-    vmax_bound = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
+    with annotate("pst.init.velocity"):
+        vmax_bound = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp,
+                                  vsf)
     return ScanInputs(params, state, int_steps, statics, vmax_bound)
 
 
@@ -973,103 +1011,112 @@ def forecast(
     ``parallel.sharded_blending.blending_scan_sharded`` (no external
     nowcast, no ``member_chunk``; the callback gets the frames after the
     loop)."""
-    if nowcasting_method not in ("steps", "external_nowcast"):
-        raise ValueError(
-            f"unknown nowcasting_method {nowcasting_method}; "
-            "must be 'steps' or 'external_nowcast'"
-        )
-    if nowcasting_method == "external_nowcast" and precip_nowcast is None:
-        raise ValueError("nowcasting_method='external_nowcast' requires precip_nowcast")
-    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight < 0:
-        raise ValueError("timestep_start_full_nwp_weight cannot be smaller than zero")
-    if mesh is not None and not isinstance(mesh, DeviceMesh):
-        raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
-    device = resolve_device(device, precip, precip_models, velocity, velocity_models)
-    if mesh is not None and mesh.device_type != device.type:
-        raise ValueError(f"a {mesh.device_type} mesh cannot run a forecast on {device}")
-    t0 = time.time()
-    if precip_thr is None:
-        raise ValueError("precip_thr required")
-    int_steps, subsel = _leads(timesteps)
-    if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight >= int_steps:
-        raise ValueError(
-            "timestep_start_full_nwp_weight cannot be the same or larger "
-            "than the total number of timesteps in this forecast"
-        )
+    with annotate("pst.gate"):
+        if nowcasting_method not in ("steps", "external_nowcast"):
+            raise ValueError(
+                f"unknown nowcasting_method {nowcasting_method}; "
+                "must be 'steps' or 'external_nowcast'"
+            )
+        if nowcasting_method == "external_nowcast" and precip_nowcast is None:
+            raise ValueError("nowcasting_method='external_nowcast' requires precip_nowcast")
+        if timestep_start_full_nwp_weight is not None and timestep_start_full_nwp_weight < 0:
+            raise ValueError("timestep_start_full_nwp_weight cannot be smaller than zero")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError("mesh must be a DeviceMesh (parallel.make_mesh)")
+        device = resolve_device(device, precip, precip_models, velocity, velocity_models)
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a forecast on {device}")
+    t0 = time.perf_counter()
+    with annotate("pst.init"):
+        if precip_thr is None:
+            raise ValueError("precip_thr required")
+        int_steps, subsel = _leads(timesteps)
+        if (timestep_start_full_nwp_weight is not None
+                and timestep_start_full_nwp_weight >= int_steps):
+            raise ValueError(
+                "timestep_start_full_nwp_weight cannot be the same or larger "
+                "than the total number of timesteps in this forecast"
+            )
 
-    inputs = scan_inputs(
-        precip, precip_models, velocity, velocity_models, timesteps, timestep,
-        n_ens_members=n_ens_members, n_cascade_levels=n_cascade_levels,
-        blend_nwp_members=blend_nwp_members, precip_thr=precip_thr, norain_thr=norain_thr,
-        kmperpixel=kmperpixel, bandpass_filter_method=bandpass_filter_method,
-        noise_method=noise_method, noise_stddev_adj=noise_stddev_adj, ar_order=ar_order,
-        vel_pert_method=vel_pert_method, weights_method=weights_method,
-        conditional=conditional, probmatching_method=probmatching_method,
-        mask_method=mask_method, resample_distribution=resample_distribution,
-        smooth_radar_mask_range=smooth_radar_mask_range, seed=seed,
-        outdir_path_skill=outdir_path_skill, extrap_kwargs=extrap_kwargs,
-        filter_kwargs=filter_kwargs, noise_kwargs=noise_kwargs,
-        vel_pert_kwargs=vel_pert_kwargs, clim_kwargs=clim_kwargs, mask_kwargs=mask_kwargs,
-        precip_nowcast=precip_nowcast,
-        timestep_start_full_nwp_weight=timestep_start_full_nwp_weight, device=device,
-    )
-    if inputs is None:
-        return nowcast_utils.zero_precipitation_forecast(
-            n_ens_members, timesteps, nowcast_utils.to_numpy(precip), device, callback,
-            return_output, measure_time, t0,
+        inputs = scan_inputs(
+            precip, precip_models, velocity, velocity_models, timesteps, timestep,
+            n_ens_members=n_ens_members, n_cascade_levels=n_cascade_levels,
+            blend_nwp_members=blend_nwp_members, precip_thr=precip_thr, norain_thr=norain_thr,
+            kmperpixel=kmperpixel, bandpass_filter_method=bandpass_filter_method,
+            noise_method=noise_method, noise_stddev_adj=noise_stddev_adj, ar_order=ar_order,
+            vel_pert_method=vel_pert_method, weights_method=weights_method,
+            conditional=conditional, probmatching_method=probmatching_method,
+            mask_method=mask_method, resample_distribution=resample_distribution,
+            smooth_radar_mask_range=smooth_radar_mask_range, seed=seed,
+            outdir_path_skill=outdir_path_skill, extrap_kwargs=extrap_kwargs,
+            filter_kwargs=filter_kwargs, noise_kwargs=noise_kwargs,
+            vel_pert_kwargs=vel_pert_kwargs, clim_kwargs=clim_kwargs, mask_kwargs=mask_kwargs,
+            precip_nowcast=precip_nowcast,
+            timestep_start_full_nwp_weight=timestep_start_full_nwp_weight, device=device,
         )
-    params, state, statics = inputs.params, inputs.state, inputs.statics
-    E = n_ens_members
-    m, n = state.cascades.shape[-2:]
-    spatial = mesh is not None and axis_size(mesh, "y") > 1
-    block = None
-    if mesh is not None and not spatial:
-        ens = axis_size(mesh, "ens")
-        block = member_block(E, mesh) if ens > 1 and E % ens == 0 else None
-    sorts = None
-    if probmatching_method == "cdf" and resample_distribution and not spatial:
-        sorts = _presort_targets(params.precip_last, params.nwp_fields, params.precip_min)
-
-    _sync(device)
-    init_time = time.time() - t0
-    t1 = time.time()
-    if callback is not None and not return_output and subsel is None and block is None \
-            and not spatial:
-        # the streaming contract: chunks of at most 4 leads reach the
-        # callback and leave the device
-        _blending_scan(params, state, int_steps, sorts=sorts, callback=callback,
-                       out_dtype=output_dtype, **statics)
-        _sync(device)
-        loop_time = time.time() - t1
+        if inputs is None:
+            return nowcast_utils.zero_precipitation_forecast(
+                n_ens_members, timesteps, nowcast_utils.to_numpy(precip), device, callback,
+                return_output, measure_time, t0,
+            )
+        params, state, statics = inputs.params, inputs.state, inputs.statics
+        E = n_ens_members
+        m, n = state.cascades.shape[-2:]
+        spatial = mesh is not None and axis_size(mesh, "y") > 1
+        block = None
+        if mesh is not None and not spatial:
+            ens = axis_size(mesh, "ens")
+            block = member_block(E, mesh) if ens > 1 and E % ens == 0 else None
+        sorts = None
+        if probmatching_method == "cdf" and resample_distribution and not spatial:
+            with annotate("pst.init.presort"):
+                sorts = _presort_targets(params.precip_last, params.nwp_fields,
+                                         params.precip_min)
         if measure_time:
-            return None, init_time, loop_time
-        return None
+            _sync(device)
+    init_time = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with annotate("pst.loop"):
+        if callback is not None and not return_output and subsel is None and block is None \
+                and not spatial:
+            # the streaming contract: chunks of at most 4 leads reach the
+            # callback and leave the device
+            _blending_scan(params, state, int_steps, sorts=sorts, callback=callback,
+                           out_dtype=output_dtype, **statics)
+            if measure_time:
+                _sync(device)
+                return None, init_time, time.perf_counter() - t1
+            return None
 
-    if spatial:
-        from pysteps_tpu_torch.parallel.sharded_blending import blending_scan_sharded
+        if spatial:
+            from pysteps_tpu_torch.parallel.sharded_blending import blending_scan_sharded
 
-        out = blending_scan_sharded(params, state, int_steps, mesh,
-                                    vmax_bound=inputs.vmax_bound, **statics)
-        out = out.to(getattr(torch, output_dtype))
-    elif block is not None:
-        # this rank's members, on every member's draws
-        out = _blending_scan(params, state, int_steps, members=slice(*block), draw_all=True,
-                             sorts=sorts, out_dtype=output_dtype, **statics)
-        out = all_gather_cat(out, mesh, "ens", dim=0)
-    else:
-        out = torch.empty((E, int_steps, m, n), dtype=getattr(torch, output_dtype),
-                          device=device)
-        chunk = member_chunk if member_chunk and E % member_chunk == 0 and subsel is None else E
-        for c0 in range(0, E, chunk):
-            _blending_scan(params, state, int_steps, members=slice(c0, c0 + chunk),
-                           sorts=sorts, out=out[c0: c0 + chunk], **statics)
-    _sync(device)
-    loop_time = time.time() - t1
+            out = blending_scan_sharded(params, state, int_steps, mesh,
+                                        vmax_bound=inputs.vmax_bound, **statics)
+            out = out.to(getattr(torch, output_dtype))
+        elif block is not None:
+            # this rank's members, on every member's draws
+            out = _blending_scan(params, state, int_steps, members=slice(*block),
+                                 draw_all=True, sorts=sorts, out_dtype=output_dtype, **statics)
+            out = all_gather_cat(out, mesh, "ens", dim=0)
+        else:
+            out = torch.empty((E, int_steps, m, n), dtype=getattr(torch, output_dtype),
+                              device=device)
+            chunk = (member_chunk if member_chunk and E % member_chunk == 0 and subsel is None
+                     else E)
+            for c0 in range(0, E, chunk):
+                _blending_scan(params, state, int_steps, members=slice(c0, c0 + chunk),
+                               sorts=sorts, out=out[c0: c0 + chunk], **statics)
+        if measure_time:
+            _sync(device)
+    loop_time = time.perf_counter() - t1
 
     if subsel is not None:
-        out = nowcast_utils.interpolate_leads(out, subsel, axis=1)
+        with annotate("pst.write"):
+            out = nowcast_utils.interpolate_leads(out, subsel, axis=1)
     if callback is not None:
-        nowcast_utils.stream_leads(out, out.shape[1], callback)
+        with annotate("pst.stream"):
+            nowcast_utils.stream_leads(out, out.shape[1], callback)
     result = out if return_output else None
     if measure_time:
         return result, init_time, loop_time

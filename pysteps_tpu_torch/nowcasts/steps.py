@@ -74,6 +74,7 @@ from pysteps_tpu_torch.postprocessing.probmatching import prepare_cdf_matcher
 from pysteps_tpu_torch.timeseries import autoregression, correlation
 from pysteps_tpu_torch.utils import tapering as tapering_utils
 from pysteps_tpu_torch.utils.check_norain import check_norain
+from pysteps_tpu_torch.utils.profiling import annotate
 
 # static displacement bound (pixels) of the kernel path: grids of at least
 # 3 * _MAX_DISP pixels a side use it for every storm
@@ -360,47 +361,52 @@ def _steps_init(
     else:
         mask_thr = torch.ones((m, n), dtype=torch.bool, device=dev)
 
-    precip_aligned = _lagrangian_alignment(
-        precip, velocity, n_iter=n_iter, interp_order=interp_order,
-        max_disp=max_disp,
-    )
-    cascades_full, means, stds, gamma, phi = _estimate_params(
-        precip_aligned, weights_2d, mask_thr, ar_order, conditional
-    )
-    window = cascades_full[:, -ar_order:]  # (k, p, m, n)
-
-    precip_last = precip[-1]
-    wet = precip_last >= precip_thr
-    war = (wet & mask_thr).sum().float() / torch.clamp(mask_thr.sum(), min=1)
-    mu_0 = torch.where(wet, precip_last, 0.0).sum() / torch.clamp(wet.sum(), min=1)
-
-    if mask_method == "incremental":
-        mask_prec_init = nowcast_utils.compute_dilated_mask(
-            wet[None], struct_radius, mask_rim
-        )[0]
-    elif mask_method == "obs":
-        mask_prec_init = wet.to(torch.float32)
-    else:
-        mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=dev)
-
-    if vel_pert:
-        eps_par = _laplace(generator, (E,))
-        eps_perp = _laplace(generator, (E,))
-        Nv = torch.linalg.vector_norm(velocity, dim=0)
-        V_n = torch.where(
-            Nv[None] > 1e-12, velocity / torch.clamp(Nv[None], min=1e-12), 0.0
+    with annotate("pst.init.align"):
+        precip_aligned = _lagrangian_alignment(
+            precip, velocity, n_iter=n_iter, interp_order=interp_order,
+            max_disp=max_disp,
         )
-        V_perp = torch.stack([-V_n[1], V_n[0]])
-    else:
-        eps_par = torch.zeros(E, device=dev)
-        eps_perp = torch.zeros(E, device=dev)
-        V_n = torch.zeros_like(velocity)
-        V_perp = torch.zeros_like(velocity)
+    with annotate("pst.init.decompose"):
+        cascades_full, means, stds, gamma, phi = _estimate_params(
+            precip_aligned, weights_2d, mask_thr, ar_order, conditional
+        )
+        window = cascades_full[:, -ar_order:]  # (k, p, m, n)
 
-    if noise_in_graph:
-        noise_filt = fftgenerators.nonparam_filter_core(precip_aligned, taper)
-    else:
-        noise_filt = torch.zeros((m, n // 2 + 1), dtype=torch.float32, device=dev)
+    with annotate("pst.init.mask"):
+        precip_last = precip[-1]
+        wet = precip_last >= precip_thr
+        war = (wet & mask_thr).sum().float() / torch.clamp(mask_thr.sum(), min=1)
+        mu_0 = torch.where(wet, precip_last, 0.0).sum() / torch.clamp(wet.sum(), min=1)
+
+        if mask_method == "incremental":
+            mask_prec_init = nowcast_utils.compute_dilated_mask(
+                wet[None], struct_radius, mask_rim
+            )[0]
+        elif mask_method == "obs":
+            mask_prec_init = wet.to(torch.float32)
+        else:
+            mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=dev)
+
+    with annotate("pst.init.bps"):
+        if vel_pert:
+            eps_par = _laplace(generator, (E,))
+            eps_perp = _laplace(generator, (E,))
+            Nv = torch.linalg.vector_norm(velocity, dim=0)
+            V_n = torch.where(
+                Nv[None] > 1e-12, velocity / torch.clamp(Nv[None], min=1e-12), 0.0
+            )
+            V_perp = torch.stack([-V_n[1], V_n[0]])
+        else:
+            eps_par = torch.zeros(E, device=dev)
+            eps_perp = torch.zeros(E, device=dev)
+            V_n = torch.zeros_like(velocity)
+            V_perp = torch.zeros_like(velocity)
+
+    with annotate("pst.init.noise"):
+        if noise_in_graph:
+            noise_filt = fftgenerators.nonparam_filter_core(precip_aligned, taper)
+        else:
+            noise_filt = torch.zeros((m, n // 2 + 1), dtype=torch.float32, device=dev)
 
     params = StepsNowcasterParams(
         phi=phi, gamma=gamma, means=means[-1], stds=stds[-1], war=war,
@@ -506,89 +512,103 @@ def _steps_scan(
 
         new_lags, new_masks, new_disps = [], [], []
         for n_draw, s, keep in chunks:
-            Ec = s.stop - s.start
-            if noise:
-                casc_j, field = _member_update(
-                    generator, tuple(c[s] for c in cascades), phi, noise_filt,
-                    noise_filt_shape, weights_2d, noise_std_coeffs,
-                    means_last, stds_last, spectral, n_draw,
-                    use_full_fft=use_full_fft, ssft_masks=ssft_masks, keep=keep,
-                )
-                if Ec == 0:  # a chunk outside the block: its draw only
-                    continue
-                new_lags.append(casc_j[-1])
-            elif Ec == 0:
-                continue
-            else:
-                field = det_field.expand(Ec, m, n)
-            mask_j = mask_prec[s]
-
-            fmin = field.amin(dim=(-2, -1), keepdim=True)
-            if mask_method == "incremental":
-                field = fmin + (field - fmin) * mask_j
-                field = torch.where(field > fmin, field, fmin)
-            elif mask_method == "obs":
-                field = torch.where(mask_j > 0, field, fmin)
-            elif mask_method == "sprog":
-                field = torch.where(sprog_m, field, fmin)
-
-            if vel_pert:
-                a1, b1, c1 = (np.float32(v) for v in p_par)
-                a2, b2, c2 = (np.float32(v) for v in p_perp)
-                g_par = float(a1 * t_total**b1 + c1)
-                g_perp = float(a2 * t_total**b2 + c2)
-                gs = slice(e0 + s.start, e0 + s.stop)
-                vel_j = vel_c + (
-                    eps_par[gs, None, None, None] * g_par * V_n_c
-                    + eps_perp[gs, None, None, None] * g_perp * V_perp_c
-                ) / vsf
-            else:
-                vel_j = vel_c
-            disp_j = integrate_displacement_coarse(
-                vel_j, displacement[s], 1.0, n_iter=n_iter, max_disp=max_disp,
-                coarse=coarse,
-            )
-            new_disps.append(disp_j)
-
-            if chain_ok:
-                # fused match + rim + warp (two kernel launches)
-                edges, d0, d1, q0, zval, ztrg = pallas_histmatch.build_pwl_coeffs(
-                    field.reshape(Ec, -1), pm_state
-                )
-                e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
-                dy_f, disp_t = upsample_planes(disp_j, shape, coarse)
-                out_field, rim_new = pallas_chain.match_warp_rim(
-                    field.contiguous(), e8, T, q0, zval, ztrg, precip_thr, dy_f,
-                    disp_t, float("nan"), max_disp,
-                    struct_radius if struct_radius else 1,
-                    mask_rim if mask_rim else 0,
-                    do_rim=mask_method == "incremental",
-                )
-                if mask_method == "incremental":
-                    new_masks.append(rim_new)
-            else:
-                if probmatching == "cdf":
-                    field = pm_match(field, pm_state)
-                elif probmatching == "mean":
-                    wet = field >= precip_thr
-                    mu_fct = torch.where(wet, field, 0.0).sum(dim=(-2, -1), keepdim=True)
-                    mu_fct = mu_fct / torch.clamp(
-                        wet.sum(dim=(-2, -1), keepdim=True), min=1
-                    )
-                    field = torch.where(wet, field - mu_fct + mu_0, field)
-
-                if mask_method == "incremental":
-                    new_masks.append(
-                        nowcast_utils.compute_dilated_mask_from_field(
-                            field, precip_thr, struct_radius, mask_rim
+            with annotate("pst.lead"):
+                Ec = s.stop - s.start
+                if noise:
+                    with annotate("pst.update"):
+                        casc_j, field = _member_update(
+                            generator, tuple(c[s] for c in cascades), phi, noise_filt,
+                            noise_filt_shape, weights_2d, noise_std_coeffs,
+                            means_last, stds_last, spectral, n_draw,
+                            use_full_fft=use_full_fft, ssft_masks=ssft_masks, keep=keep,
                         )
-                    )
+                    if Ec == 0:  # a chunk outside the block: its draw only
+                        continue
+                    new_lags.append(casc_j[-1])
+                elif Ec == 0:
+                    continue
+                else:
+                    field = det_field.expand(Ec, m, n)
+                mask_j = mask_prec[s]
 
-                out_field = model_warp_coarse(
-                    field, disp_j, shape, coarse, max_disp=max_disp,
-                    interp_order=interp_order, cval=float("nan"),
-                )
-            out[s, t - t0] = torch.where(domain_mask, float("nan"), out_field).to(out.dtype)
+                with annotate("pst.mask"):
+                    fmin = field.amin(dim=(-2, -1), keepdim=True)
+                    if mask_method == "incremental":
+                        field = fmin + (field - fmin) * mask_j
+                        field = torch.where(field > fmin, field, fmin)
+                    elif mask_method == "obs":
+                        field = torch.where(mask_j > 0, field, fmin)
+                    elif mask_method == "sprog":
+                        field = torch.where(sprog_m, field, fmin)
+
+                with annotate("pst.warp"):
+                    if vel_pert:
+                        a1, b1, c1 = (np.float32(v) for v in p_par)
+                        a2, b2, c2 = (np.float32(v) for v in p_perp)
+                        g_par = float(a1 * t_total**b1 + c1)
+                        g_perp = float(a2 * t_total**b2 + c2)
+                        gs = slice(e0 + s.start, e0 + s.stop)
+                        vel_j = vel_c + (
+                            eps_par[gs, None, None, None] * g_par * V_n_c
+                            + eps_perp[gs, None, None, None] * g_perp * V_perp_c
+                        ) / vsf
+                    else:
+                        vel_j = vel_c
+                    disp_j = integrate_displacement_coarse(
+                        vel_j, displacement[s], 1.0, n_iter=n_iter, max_disp=max_disp,
+                        coarse=coarse,
+                    )
+                    new_disps.append(disp_j)
+
+                if chain_ok:
+                    with annotate("pst.match"):
+                        edges, d0, d1, q0, zval, ztrg = pallas_histmatch.build_pwl_coeffs(
+                            field.reshape(Ec, -1), pm_state
+                        )
+                        e8, T = pallas_histmatch.pack_gather_lut(edges, d0, d1)
+                    # fused match + rim + warp (two kernel launches)
+                    with annotate("pst.chain"):
+                        dy_f, disp_t = upsample_planes(disp_j, shape, coarse)
+                        out_field, rim_new = pallas_chain.match_warp_rim(
+                            field.contiguous(), e8, T, q0, zval, ztrg, precip_thr, dy_f,
+                            disp_t, float("nan"), max_disp,
+                            struct_radius if struct_radius else 1,
+                            mask_rim if mask_rim else 0,
+                            do_rim=mask_method == "incremental",
+                        )
+                    if mask_method == "incremental":
+                        new_masks.append(rim_new)
+                else:
+                    with annotate("pst.match"):
+                        if probmatching == "cdf":
+                            field = pm_match(field, pm_state)
+                        elif probmatching == "mean":
+                            wet = field >= precip_thr
+                            mu_fct = torch.where(wet, field, 0.0).sum(
+                                dim=(-2, -1), keepdim=True
+                            )
+                            mu_fct = mu_fct / torch.clamp(
+                                wet.sum(dim=(-2, -1), keepdim=True), min=1
+                            )
+                            field = torch.where(wet, field - mu_fct + mu_0, field)
+
+                    if mask_method == "incremental":
+                        with annotate("pst.mask"):
+                            new_masks.append(
+                                nowcast_utils.compute_dilated_mask_from_field(
+                                    field, precip_thr, struct_radius, mask_rim
+                                )
+                            )
+
+                    with annotate("pst.warp"):
+                        out_field = model_warp_coarse(
+                            field, disp_j, shape, coarse, max_disp=max_disp,
+                            interp_order=interp_order, cval=float("nan"),
+                        )
+                with annotate("pst.write"):
+                    out[s, t - t0] = torch.where(
+                        domain_mask, float("nan"), out_field
+                    ).to(out.dtype)
 
         if noise:
             cascades = cascades[1:] + (gather(new_lags, cascades[-1]),)
@@ -596,7 +616,8 @@ def _steps_scan(
             mask_prec = gather(new_masks, mask_prec)
         displacement = gather(new_disps, displacement)
         if callback is not None and (t + 1 - t0 == buf_leads or t + 1 == int_steps):
-            nowcast_utils.stream_leads(out, t + 1 - t0, callback)
+            with annotate("pst.stream"):
+                nowcast_utils.stream_leads(out, t + 1 - t0, callback)
             t0 = t + 1
     return None if callback is not None else out
 
@@ -651,158 +672,166 @@ def _noise_init(cfg, precip, precip_aligned, params, bp_filter, generator, shape
 def _steps_forecast(precip, velocity, timesteps, cfg, domain_mask, device):
     """Initialization + loop.  Returns (out (E, T, m, n), init_s, loop_s),
     with out None when the loop streamed its frames to the callback."""
-    t_init0 = time.time()
-    m, n = precip.shape[1:]
-    p = cfg.ar_order
-    E = cfg.n_ens_members
-    k_levels = cfg.n_cascade_levels
+    t_init0 = time.perf_counter()
+    with annotate("pst.init"):
+        m, n = precip.shape[1:]
+        p = cfg.ar_order
+        E = cfg.n_ens_members
+        k_levels = cfg.n_cascade_levels
 
-    if isinstance(timesteps, int):
-        int_steps = timesteps
-        subsel = None
-    else:
-        subsel = list(timesteps)
-        int_steps = int(np.ceil(max(subsel)))
-
-    filter_method = cascade.get_method(cfg.bandpass_filter_method)
-    bp_filter = filter_method((m, n), k_levels, **cfg.filter_kwargs)
-    weights_2d = torch.tensor(bp_filter["weights_2d"], dtype=torch.float32, device=device)
-
-    generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.seed if cfg.seed is not None else 42)
-
-    extrap_kwargs = dict(cfg.extrapolation_kwargs)
-    n_iter = extrap_kwargs.get("n_iter", 1)
-    interp_order = extrap_kwargs.get("interp_order", 1)
-
-    vel_pert = cfg.velocity_perturbation_method is not None
-    if vel_pert:
-        vp_kwargs = dict(cfg.velocity_perturbation_kwargs)
-        p_par = tuple(float(v) for v in vp_kwargs.get("p_par", get_default_params_bps_par()))
-        p_perp = tuple(float(v) for v in vp_kwargs.get("p_perp", get_default_params_bps_perp()))
-        vsf = 60.0 / (cfg.timestep * (1.0 / cfg.kmperpixel))
-    else:
-        p_par = p_perp = None
-        vsf = 1.0
-
-    mask_rim = None
-    struct_radius = 1
-    if cfg.mask_method == "incremental":
-        mask_rim = int(cfg.mask_kwargs.get("mask_rim", 10))
-        mask_f = cfg.mask_kwargs.get("mask_f", 1.0)
-        # structuring element scaled by the per-step motion extent
-        if cfg.timestep is not None and cfg.kmperpixel is not None:
-            n_struct = mask_f * cfg.timestep / cfg.kmperpixel
+        if isinstance(timesteps, int):
+            int_steps = timesteps
+            subsel = None
         else:
-            n_struct = 3.0
-        struct_radius = max(int((n_struct - 1) / 2.0), 1)
+            subsel = list(timesteps)
+            int_steps = int(np.ceil(max(subsel)))
 
-    precip_thr_f = float(
-        np.float32(cfg.precip_threshold if cfg.precip_threshold is not None else 0.0)
-    )
+        with annotate("pst.init.filter"):
+            filter_method = cascade.get_method(cfg.bandpass_filter_method)
+            bp_filter = filter_method((m, n), k_levels, **cfg.filter_kwargs)
+            weights_2d = torch.tensor(
+                bp_filter["weights_2d"], dtype=torch.float32, device=device
+            )
+            noise_in_graph = cfg.noise_method == "nonparametric"
+            win_fun = cfg.noise_kwargs.get("win_fun", "tukey") if noise_in_graph else None
+            taper = torch.as_tensor(
+                tapering_utils.compute_window_function(m, n, win_fun)
+                if win_fun is not None else np.ones((m, n)),
+                dtype=torch.float32, device=device,
+            )
 
-    # static displacement bounds select the shift-decomposition kernels
-    # (K1/K2); on the CPU the exact gather is the path, as in the JAX package
-    on_cpu = device.type == "cpu"
-    if not on_cpu and min(m, n) >= 3 * _MAX_DISP:
-        max_disp_align = max_disp_scan = _MAX_DISP
-    else:
-        vmax = float(velocity.abs().max()) if velocity.numel() else 0.0
+        generator = torch.Generator(device=device)
+        generator.manual_seed(cfg.seed if cfg.seed is not None else 42)
+
+        extrap_kwargs = dict(cfg.extrapolation_kwargs)
+        n_iter = extrap_kwargs.get("n_iter", 1)
+        interp_order = extrap_kwargs.get("interp_order", 1)
+
+        vel_pert = cfg.velocity_perturbation_method is not None
         if vel_pert:
-            # 4-sigma Laplace margin on the BPS perturbation at the last lead
-            t_last = int_steps * (cfg.timestep or 1.0)
-            g_par = abs(p_par[0] * t_last ** p_par[1] + p_par[2])
-            g_perp = abs(p_perp[0] * t_last ** p_perp[1] + p_perp[2])
-            pert_margin = 4.0 * max(g_par, g_perp) / max(vsf, 1e-6)
+            vp_kwargs = dict(cfg.velocity_perturbation_kwargs)
+            p_par = tuple(float(v) for v in vp_kwargs.get("p_par", get_default_params_bps_par()))
+            p_perp = tuple(float(v) for v in vp_kwargs.get("p_perp", get_default_params_bps_perp()))
+            vsf = 60.0 / (cfg.timestep * (1.0 / cfg.kmperpixel))
         else:
-            pert_margin = 0.0
-        max_disp_align = max(int(np.ceil(p * (vmax + 1.0))) + 1, 2)
-        max_disp_scan = max(
-            int(np.ceil(int_steps * (vmax + pert_margin))) + 2, max_disp_align
+            p_par = p_perp = None
+            vsf = 1.0
+
+        mask_rim = None
+        struct_radius = 1
+        if cfg.mask_method == "incremental":
+            mask_rim = int(cfg.mask_kwargs.get("mask_rim", 10))
+            mask_f = cfg.mask_kwargs.get("mask_f", 1.0)
+            # structuring element scaled by the per-step motion extent
+            if cfg.timestep is not None and cfg.kmperpixel is not None:
+                n_struct = mask_f * cfg.timestep / cfg.kmperpixel
+            else:
+                n_struct = 3.0
+            struct_radius = max(int((n_struct - 1) / 2.0), 1)
+
+        precip_thr_f = float(
+            np.float32(cfg.precip_threshold if cfg.precip_threshold is not None else 0.0)
         )
-        max_disp_scan = min(max_disp_scan, _MAX_DISP)
-        if max_disp_scan > min(m, n) // 3:
-            max_disp_scan = None
-        if on_cpu:
-            max_disp_align = max_disp_scan = None
 
-    noise_in_graph = cfg.noise_method == "nonparametric"
-    win_fun = cfg.noise_kwargs.get("win_fun", "tukey") if noise_in_graph else None
-    taper = torch.as_tensor(
-        tapering_utils.compute_window_function(m, n, win_fun)
-        if win_fun is not None else np.ones((m, n)),
-        dtype=torch.float32, device=device,
-    )
+        # static displacement bounds select the shift-decomposition kernels
+        # (K1/K2); on the CPU the exact gather is the path, as in the JAX package
+        on_cpu = device.type == "cpu"
+        if not on_cpu and min(m, n) >= 3 * _MAX_DISP:
+            max_disp_align = max_disp_scan = _MAX_DISP
+        else:
+            vmax = float(velocity.abs().max()) if velocity.numel() else 0.0
+            if vel_pert:
+                # 4-sigma Laplace margin on the BPS perturbation at the last lead
+                t_last = int_steps * (cfg.timestep or 1.0)
+                g_par = abs(p_par[0] * t_last ** p_par[1] + p_par[2])
+                g_perp = abs(p_perp[0] * t_last ** p_perp[1] + p_perp[2])
+                pert_margin = 4.0 * max(g_par, g_perp) / max(vsf, 1e-6)
+            else:
+                pert_margin = 0.0
+            max_disp_align = max(int(np.ceil(p * (vmax + 1.0))) + 1, 2)
+            max_disp_scan = max(
+                int(np.ceil(int_steps * (vmax + pert_margin))) + 2, max_disp_align
+            )
+            max_disp_scan = min(max_disp_scan, _MAX_DISP)
+            if max_disp_scan > min(m, n) // 3:
+                max_disp_scan = None
+            if on_cpu:
+                max_disp_align = max_disp_scan = None
 
-    precip_aligned, params, state = _steps_init(
-        precip, velocity, weights_2d, generator, precip_thr_f, taper,
-        E=E, ar_order=p, conditional=cfg.conditional,
-        mask_method=cfg.mask_method, struct_radius=struct_radius,
-        mask_rim=mask_rim if mask_rim is not None else 0,
-        vel_pert=vel_pert, n_iter=n_iter, interp_order=interp_order,
-        noise_in_graph=noise_in_graph, max_disp=max_disp_align,
-    )
-    noise_filt, use_full_fft, ssft_masks, noise_std_coeffs = _noise_init(
-        cfg, precip, precip_aligned, params, bp_filter, generator, (m, n)
-    )
-    del precip_aligned
+        precip_aligned, params, state = _steps_init(
+            precip, velocity, weights_2d, generator, precip_thr_f, taper,
+            E=E, ar_order=p, conditional=cfg.conditional,
+            mask_method=cfg.mask_method, struct_radius=struct_radius,
+            mask_rim=mask_rim if mask_rim is not None else 0,
+            vel_pert=vel_pert, n_iter=n_iter, interp_order=interp_order,
+            noise_in_graph=noise_in_graph, max_disp=max_disp_align,
+        )
+        with annotate("pst.init.noise"):
+            noise_filt, use_full_fft, ssft_masks, noise_std_coeffs = _noise_init(
+                cfg, precip, precip_aligned, params, bp_filter, generator, (m, n)
+            )
+        del precip_aligned
 
-    member_chunk = (
-        cfg.member_chunk if cfg.member_chunk and E % cfg.member_chunk == 0 else None
-    )
-    # the members split over the mesh's "ens" dimension where it has more
-    # than one rank and divides E (the JAX package's rule)
-    ens = axis_size(cfg.mesh, "ens") if cfg.mesh is not None else 1
-    members = member_block(E, cfg.mesh) if ens > 1 and E % ens == 0 else None
-    _sync(device)
-    init_time = time.time() - t_init0
-    t_loop0 = time.time()
-    # the streaming contract: chunks of at most 6 leads reach the callback
-    # and leave the device, so it never holds E x T frames
-    stream = (cfg.callback is not None and not cfg.return_output and subsel is None
-              and members is None)
-    out = _steps_scan(
-        state.window, state.precip_mask, state.generator, velocity, params.phi,
-        noise_filt, (m, n), weights_2d, noise_std_coeffs,
-        params.means, params.stds, params.precip_last, params.precip_min,
-        precip_thr_f, params.war, params.mu_0, domain_mask,
-        state.eps_par, state.eps_perp, params.velocity_unit, params.velocity_perp,
-        vsf, p_par, p_perp, int_steps,
-        noise=cfg.noise_method is not None,
-        mask_method=cfg.mask_method,
-        probmatching=cfg.probmatching_method,
-        domain=cfg.domain,
-        vel_pert=vel_pert,
-        timestep_min=float(cfg.timestep) if cfg.timestep else 1.0,
-        mask_rim=mask_rim,
-        struct_radius=struct_radius,
-        n_iter=n_iter,
-        interp_order=interp_order,
-        need_det=cfg.noise_method is None or cfg.mask_method == "sprog",
-        E=E,
-        out_dtype=cfg.output_dtype,
-        member_chunk=member_chunk,
-        max_disp=max_disp_scan,
-        pwl_match=not on_cpu and pallas_histmatch.supported((m, n)),
-        use_chain=_chain_available(
-            cfg.probmatching_method, interp_order, max_disp_scan, (m, n),
-            not on_cpu,
-            rim=(struct_radius or 1) + (mask_rim or 0)
-            if cfg.mask_method == "incremental" else 0,
-        ),
-        use_full_fft=use_full_fft,
-        ssft_masks=ssft_masks,
-        callback=cfg.callback if stream else None,
-        t_chunk=6,
-        members=members,
-    )
-    if members is not None:
-        out = all_gather_cat(out, cfg.mesh, "ens", dim=0)
-    _sync(device)
-    loop_time = time.time() - t_loop0
+        member_chunk = (
+            cfg.member_chunk if cfg.member_chunk and E % cfg.member_chunk == 0 else None
+        )
+        # the members split over the mesh's "ens" dimension where it has more
+        # than one rank and divides E (the JAX package's rule)
+        ens = axis_size(cfg.mesh, "ens") if cfg.mesh is not None else 1
+        members = member_block(E, cfg.mesh) if ens > 1 and E % ens == 0 else None
+        if cfg.measure_time:
+            _sync(device)
+    init_time = time.perf_counter() - t_init0
+    t_loop0 = time.perf_counter()
+    with annotate("pst.loop"):
+        # the streaming contract: chunks of at most 6 leads reach the callback
+        # and leave the device, so it never holds E x T frames
+        stream = (cfg.callback is not None and not cfg.return_output and subsel is None
+                  and members is None)
+        out = _steps_scan(
+            state.window, state.precip_mask, state.generator, velocity, params.phi,
+            noise_filt, (m, n), weights_2d, noise_std_coeffs,
+            params.means, params.stds, params.precip_last, params.precip_min,
+            precip_thr_f, params.war, params.mu_0, domain_mask,
+            state.eps_par, state.eps_perp, params.velocity_unit, params.velocity_perp,
+            vsf, p_par, p_perp, int_steps,
+            noise=cfg.noise_method is not None,
+            mask_method=cfg.mask_method,
+            probmatching=cfg.probmatching_method,
+            domain=cfg.domain,
+            vel_pert=vel_pert,
+            timestep_min=float(cfg.timestep) if cfg.timestep else 1.0,
+            mask_rim=mask_rim,
+            struct_radius=struct_radius,
+            n_iter=n_iter,
+            interp_order=interp_order,
+            need_det=cfg.noise_method is None or cfg.mask_method == "sprog",
+            E=E,
+            out_dtype=cfg.output_dtype,
+            member_chunk=member_chunk,
+            max_disp=max_disp_scan,
+            pwl_match=not on_cpu and pallas_histmatch.supported((m, n)),
+            use_chain=_chain_available(
+                cfg.probmatching_method, interp_order, max_disp_scan, (m, n),
+                not on_cpu,
+                rim=(struct_radius or 1) + (mask_rim or 0)
+                if cfg.mask_method == "incremental" else 0,
+            ),
+            use_full_fft=use_full_fft,
+            ssft_masks=ssft_masks,
+            callback=cfg.callback if stream else None,
+            t_chunk=6,
+            members=members,
+        )
+        if members is not None:
+            out = all_gather_cat(out, cfg.mesh, "ens", dim=0)
+        if cfg.measure_time:
+            _sync(device)
+    loop_time = time.perf_counter() - t_loop0
 
     if subsel is not None:
-        out = nowcast_utils.interpolate_leads(out, subsel, axis=1)
+        with annotate("pst.write"):
+            out = nowcast_utils.interpolate_leads(out, subsel, axis=1)
     return out, init_time, loop_time
 
 
@@ -824,27 +853,29 @@ class StepsNowcaster:
 
     def compute_forecast(self):
         cfg = self.config
-        t0 = time.time()
-        self._check_inputs()
-        if check_norain(
-            self.precip, cfg.precip_threshold, cfg.norain_threshold,
-            cfg.noise_kwargs.get("win_fun", "tukey"), printmsg=True,
-        ):
-            return nowcast_utils.zero_precipitation_forecast(
-                cfg.n_ens_members, self.timesteps, self.precip, self.device,
-                cfg.callback, cfg.return_output, cfg.measure_time, t0,
-            )
-        precip_np = self.precip[-(cfg.ar_order + 1):].astype(np.float32)
-        domain_mask = ~np.isfinite(precip_np[-1])
-        precip_np = np.where(np.isfinite(precip_np), precip_np, np.nanmin(precip_np))
+        t0 = time.perf_counter()
+        with annotate("pst.gate"):
+            self._check_inputs()
+            if check_norain(
+                self.precip, cfg.precip_threshold, cfg.norain_threshold,
+                cfg.noise_kwargs.get("win_fun", "tukey"), printmsg=True,
+            ):
+                return nowcast_utils.zero_precipitation_forecast(
+                    cfg.n_ens_members, self.timesteps, self.precip, self.device,
+                    cfg.callback, cfg.return_output, cfg.measure_time, t0,
+                )
+            precip_np = self.precip[-(cfg.ar_order + 1):].astype(np.float32)
+            domain_mask = ~np.isfinite(precip_np[-1])
+            precip_np = np.where(np.isfinite(precip_np), precip_np, np.nanmin(precip_np))
+            precip_t = torch.as_tensor(precip_np, device=self.device)
+            velocity_t = torch.as_tensor(self.velocity, dtype=torch.float32, device=self.device)
+            domain_mask_t = torch.as_tensor(domain_mask, device=self.device)
         out, init_time, loop_time = _steps_forecast(
-            torch.as_tensor(precip_np, device=self.device),
-            torch.as_tensor(self.velocity, dtype=torch.float32, device=self.device),
-            self.timesteps, cfg, torch.as_tensor(domain_mask, device=self.device),
-            self.device,
+            precip_t, velocity_t, self.timesteps, cfg, domain_mask_t, self.device
         )
         if cfg.callback is not None and out is not None:
-            nowcast_utils.stream_leads(out, out.shape[1], cfg.callback)
+            with annotate("pst.stream"):
+                nowcast_utils.stream_leads(out, out.shape[1], cfg.callback)
         result = out if cfg.return_output else None
         if cfg.measure_time:
             return result, init_time, loop_time
@@ -944,38 +975,40 @@ def forecast(
     the members split over its "ens" dimension where that has more than
     one rank and divides ``n_ens_members``, and every rank gets the whole
     ensemble, equal to the unsharded forecast's."""
-    device = resolve_device(device, precip, velocity)
-    config = StepsNowcasterConfig(
-        n_ens_members=n_ens_members,
-        n_cascade_levels=n_cascade_levels,
-        precip_threshold=precip_thr,
-        norain_threshold=norain_thr,
-        kmperpixel=kmperpixel,
-        timestep=timestep,
-        extrapolation_method=extrap_method,
-        decomposition_method=decomp_method,
-        bandpass_filter_method=bandpass_filter_method,
-        noise_method=noise_method,
-        noise_stddev_adj=noise_stddev_adj,
-        ar_order=ar_order,
-        velocity_perturbation_method=vel_pert_method,
-        conditional=conditional,
-        probmatching_method=probmatching_method,
-        mask_method=mask_method,
-        seed=seed,
-        num_workers=num_workers,
-        fft_method=fft_method,
-        domain=domain,
-        extrapolation_kwargs=extrap_kwargs or {},
-        filter_kwargs=filter_kwargs or {},
-        noise_kwargs=noise_kwargs or {},
-        velocity_perturbation_kwargs=vel_pert_kwargs or {},
-        mask_kwargs=mask_kwargs or {},
-        measure_time=measure_time,
-        callback=callback,
-        return_output=return_output,
-        member_chunk=member_chunk,
-        mesh=mesh,
-        output_dtype=output_dtype,
-    )
-    return StepsNowcaster(precip, velocity, timesteps, config, device).compute_forecast()
+    with annotate("pst.gate"):
+        device = resolve_device(device, precip, velocity)
+        config = StepsNowcasterConfig(
+            n_ens_members=n_ens_members,
+            n_cascade_levels=n_cascade_levels,
+            precip_threshold=precip_thr,
+            norain_threshold=norain_thr,
+            kmperpixel=kmperpixel,
+            timestep=timestep,
+            extrapolation_method=extrap_method,
+            decomposition_method=decomp_method,
+            bandpass_filter_method=bandpass_filter_method,
+            noise_method=noise_method,
+            noise_stddev_adj=noise_stddev_adj,
+            ar_order=ar_order,
+            velocity_perturbation_method=vel_pert_method,
+            conditional=conditional,
+            probmatching_method=probmatching_method,
+            mask_method=mask_method,
+            seed=seed,
+            num_workers=num_workers,
+            fft_method=fft_method,
+            domain=domain,
+            extrapolation_kwargs=extrap_kwargs or {},
+            filter_kwargs=filter_kwargs or {},
+            noise_kwargs=noise_kwargs or {},
+            velocity_perturbation_kwargs=vel_pert_kwargs or {},
+            mask_kwargs=mask_kwargs or {},
+            measure_time=measure_time,
+            callback=callback,
+            return_output=return_output,
+            member_chunk=member_chunk,
+            mesh=mesh,
+            output_dtype=output_dtype,
+        )
+        nowcaster = StepsNowcaster(precip, velocity, timesteps, config, device)
+    return nowcaster.compute_forecast()

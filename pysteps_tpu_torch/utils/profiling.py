@@ -7,6 +7,16 @@ when one is present) and writes it as a Chrome trace into ``logdir``,
 caching allocator's statistics under the JAX package's key names, and
 ``Timer`` accumulates named wall-clock sections that end in a
 synchronization of the card.
+
+``annotate`` is the port's span entry point.  The STEPS nowcast and STEPS
+blending forecasts name their stages with it (``pst.gate``, ``pst.init``
+and its ``pst.init.*`` stages, ``pst.loop``, one ``pst.lead`` a lead and
+member chunk with its ``pst.update``, ``pst.mask``, ``pst.match``,
+``pst.warp`` and ``pst.write``; ``pst.stream`` where a callback takes the
+frames).  Under any ``torch.profiler`` session, ``trace`` included, the
+spans land in the same trace as the kernels and copies, on the same clock,
+so a forecast wrapped in ``trace`` shows them in Perfetto.  With no
+session recording a span costs one check of the profiler's state.
 """
 
 import contextlib
@@ -40,15 +50,23 @@ def trace(logdir=None, host=False):
     )
 
 
+# the context ``annotate`` hands out while no profiler records
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name):
-    """Named region that shows up inside profiler traces.
+    """Named region that shows up inside profiler traces: a
+    ``torch.profiler.record_function`` while a profiler session records,
+    else a shared no-op context (no dispatcher call, nothing allocated).
 
     Usage::
 
         with annotate("cascade-decompose"):
             levels, mu, sigma = decompose_core(field, weights)
     """
-    return torch.profiler.record_function(name)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 # the JAX package's names (a TPU device's ``memory_stats()``) and the
