@@ -2262,7 +2262,7 @@ def _blend_path(label, side, T, E, skill_dir, expected, **extra):
     rec["spread_per_lead"] = _spread(out, T)
     rec["member_frames_per_s"] = E * T / rec["wall_s"]
     rec["max_disp"] = blend_mod._scan_bound(
-        torch.as_tensor(velocity)[None, None], T, 5.0, False, None, None, 1.0, (side, side))
+        float(np.abs(velocity).max()), T, 5.0, False, None, None, 1.0, (side, side))
     rec["value_range"] = [float(out.min()), float(out.max())]
     members = (extra.get("member_chunk") or E, side, side)
     for axis in (0, 1):

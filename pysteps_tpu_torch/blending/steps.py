@@ -6,9 +6,12 @@ The JAX package's design carries over:
 
 - the per-lead weights (NWP skill regressed towards climatology,
   extrapolation skill through the AR decay) and the blended advection
-  fields do not depend on the ensemble state, so they are computed once on
-  the host before the loop; only the lag-0 correlations ``rho_0`` come
-  back from the device for them;
+  fields do not depend on the ensemble state, so they are computed once
+  before the loop: the weights on the host, where only the lag-0
+  correlations ``rho_0`` come back from the device for them, and the
+  advection on the device from the weights.  The inputs cross to the
+  device once and are gated, filled and blended there (the JAX package
+  does this on the host);
 - the loop advances every member at once (JAX vmaps over members) in a
   Python loop over leads (JAX: ``lax.scan``).  A member's NWP model is a
   gather along the member axis; the NWP cascades enter the recomposition
@@ -45,6 +48,7 @@ than one rank, the row-sharded loop of
 """
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -81,7 +85,7 @@ from pysteps_tpu_torch.parallel.mesh import all_gather_cat, axis_size, member_bl
 from pysteps_tpu_torch.postprocessing import probmatching
 from pysteps_tpu_torch.utils import tapering
 from pysteps_tpu_torch.utils.arrays import _nanmin
-from pysteps_tpu_torch.utils.check_norain import check_norain
+from pysteps_tpu_torch.utils.check_norain import nanmin, rain_count
 from pysteps_tpu_torch.utils.profiling import annotate
 
 # the largest static displacement bound of the shift path (pixels)
@@ -565,10 +569,9 @@ def _blending_scan(
     return None if callback is not None else out
 
 
-def _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf):
-    """The largest blended speed over the forecast plus a 4-sigma margin
-    for the BPS perturbation (px a lead)."""
-    vmax = float(velocity_blend.abs().max()) if velocity_blend.numel() else 0.0
+def _speed_bound(vmax, int_steps, timestep, vel_pert, p_par, p_perp, vsf):
+    """The largest blended speed over the forecast, ``vmax``, plus a
+    4-sigma margin for the BPS perturbation (px a lead)."""
     if vel_pert:
         t_last = int_steps * (timestep or 1.0)
         g_par_l = abs(p_par[0] * t_last ** p_par[1] + p_par[2])
@@ -577,12 +580,12 @@ def _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, v
     return vmax
 
 
-def _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf, shape):
+def _scan_bound(vmax, int_steps, timestep, vel_pert, p_par, p_perp, vsf, shape):
     """The static displacement bound of the card's path (the JAX package's
-    TPU branch): the largest blended speed over the forecast, with a
-    4-sigma margin for the BPS perturbation, plus 2 px, at most 48 and at
-    most a third of the grid (else None)."""
-    speed = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
+    TPU branch): the largest blended speed over the forecast, ``vmax``,
+    with a 4-sigma margin for the BPS perturbation, plus 2 px, at most 48
+    and at most a third of the grid (else None)."""
+    speed = _speed_bound(vmax, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
     max_disp = max(int(np.ceil(int_steps * speed)) + 2, 2)
     max_disp = min(max_disp, _MAX_DISP)
     if max_disp > min(shape) // 3:
@@ -661,40 +664,52 @@ def scan_inputs(
     clim_kwargs = dict(clim_kwargs or {})
     filter_kwargs = filter_kwargs or {}
     int_steps, _ = _leads(timesteps)
+    if precip_thr is None:
+        raise ValueError("precip_thr required")
     host = nowcast_utils.to_numpy
     with annotate("pst.init.norain"):
-        precip = host(precip).astype(np.float32)
-        precip_models = host(precip_models).astype(np.float32)
-        velocity = host(velocity).astype(np.float32)
-        velocity_models = host(velocity_models).astype(np.float32)
+        # every field crosses to the device once, as float32; frames older
+        # than the AR window stay where they lie and count in the radar's
+        # gate alone
+        if not isinstance(precip, torch.Tensor):
+            precip = np.asarray(precip)
+        radar_size = math.prod(precip.shape)
+        older = precip[: -(ar_order + 1)]
+        precip_t = as_device_tensor(precip[-(ar_order + 1):], device, torch.float32)
+        nwp_t = as_device_tensor(precip_models, device, torch.float32)
+        velocity_t = as_device_tensor(velocity, device, torch.float32)
+        velocity_models_t = as_device_tensor(velocity_models, device, torch.float32)
+        if nwp_t.ndim == 3:
+            nwp_t = nwp_t[:, None].expand(-1, int_steps + 1, -1, -1)
+        n_models = nwp_t.shape[0]
+        if velocity_models_t.ndim == 3:
+            velocity_models_t = velocity_models_t[None]
+        m, n = precip_t.shape[-2:]
 
-        if precip_models.ndim == 3:
-            precip_models = np.repeat(precip_models[:, None], int_steps + 1, axis=1)
-        n_models = precip_models.shape[0]
-        if velocity_models.ndim == 3:
-            velocity_models = velocity_models[None]
-        m, n = precip.shape[-2:]
-
-        # the no-rain gates of radar and NWP
-        zero_radar = check_norain(precip, precip_thr, norain_thr, None, printmsg=False)
-        zero_nwp = check_norain(precip_models, precip_thr, norain_thr, None, printmsg=False)
-        if zero_radar and zero_nwp:
+        # the no-rain gates of radar and NWP, the radar's smallest value and
+        # whether its domain has holes come to the host in one read
+        n_radar = rain_count(precip_t, precip_thr)
+        if len(older):
+            on = older.device if isinstance(older, torch.Tensor) else "cpu"
+            n_radar = n_radar + rain_count(
+                as_device_tensor(older, on, torch.float32), precip_thr).to(device)
+        domain_mask_t = ~torch.isfinite(precip_t[-1])
+        precip_min_t = nanmin(precip_t)
+        n_radar, n_nwp, precip_min, holes = torch.stack([
+            n_radar.double(), rain_count(nwp_t, precip_thr).double(), precip_min_t.double(),
+            domain_mask_t.any().double(),
+        ]).tolist()
+        if n_radar / radar_size <= norain_thr and n_nwp / nwp_t.numel() <= norain_thr:
             return None
 
-        precip = precip[-(ar_order + 1):]
-        domain_mask = ~np.isfinite(precip[-1])
-        precip_min = float(np.nanmin(precip))
-        precip = np.where(np.isfinite(precip), precip, precip_min)
-        precip_models = np.where(np.isfinite(precip_models), precip_models, precip_min)
+        precip_t = torch.where(torch.isfinite(precip_t), precip_t, precip_min_t)
+        nwp_t = torch.where(torch.isfinite(nwp_t), nwp_t, precip_min_t)
 
     with annotate("pst.init.filter"):
         bp_filter = cascade.get_method(bandpass_filter_method)((m, n), n_cascade_levels,
                                                                **filter_kwargs)
         weights_2d = torch.tensor(np.asarray(bp_filter["weights_2d"]), dtype=torch.float32,
                                   device=device)
-        precip_t = torch.as_tensor(precip, device=device)
-        velocity_t = torch.as_tensor(velocity, device=device)
-        domain_mask_t = torch.as_tensor(domain_mask, device=device)
 
     # radar cascades and AR parameters (the nowcast's machinery)
     if conditional:
@@ -710,13 +725,10 @@ def scan_inputs(
         window = cascades_full[:, -ar_order:]
 
     # every model's and lead's NWP cascade in one batched decomposition
-    with annotate("pst.init.copy"):
-        nwp_stack = torch.as_tensor(precip_models[:, : int_steps + 1], device=device)
     with annotate("pst.init.nwp_decompose"):
         nwp_levels, nwp_means_all, nwp_sigmas_all = decompose_core(
-            nwp_stack, weights_2d, normalize=True
+            nwp_t[:, : int_steps + 1].contiguous(), weights_2d, normalize=True
         )  # (n_models, T+1, k, m, n), (n_models, T+1, k)
-    del nwp_stack
 
     with annotate("pst.init.rho0"):
         # the NWP skill at t=0 against the latest radar cascade
@@ -768,19 +780,26 @@ def scan_inputs(
     with annotate("pst.init.velocity"):
         # the blended advection of each lead, weighted by the second cascade
         # level's weights; static (n_models, 2, m, n) or time-varying
-        # (n_models, T+1, 2, m, n) model velocities
-        vel_w_extrap = weights_t[:, :, 0, 1]  # (T, n_models)
-        vel_w_nwp = weights_t[:, :, 1, 1]
-        tot = np.maximum(vel_w_extrap + vel_w_nwp, 1e-12)
-        if velocity_models.ndim == 5:
-            idx = np.clip(np.arange(1, int_steps + 1), 0, velocity_models.shape[1] - 1)
-            vm_t = np.swapaxes(velocity_models[:, idx], 0, 1)  # (T, n_models, 2, m, n)
+        # (n_models, T+1, 2, m, n) model velocities.  One float32 op at a
+        # time, as numpy computes it: no fused multiply-add, and a division
+        # by a tensor (by a Python float the card multiplies by a rounded
+        # reciprocal)
+        weights = torch.as_tensor(weights_t, device=device)
+        w_extrap = weights[:, :, 0, 1, None, None, None]  # (T, n_models, 1, 1, 1)
+        w_nwp = weights[:, :, 1, 1, None, None, None]
+        tot = torch.clamp(w_extrap + w_nwp, min=1e-12)
+        if velocity_models_t.ndim == 5:
+            idx = torch.arange(1, int_steps + 1, device=device).clamp(
+                max=velocity_models_t.shape[1] - 1)
+            vm_t = velocity_models_t[:, idx].transpose(0, 1)  # (T, n_models, 2, m, n)
         else:
-            vm_t = velocity_models[None, :, :2]
-        velocity_blend = (
-            vel_w_extrap[..., None, None, None] * velocity[None, None]
-            + vel_w_nwp[..., None, None, None] * vm_t
-        ) / tot[..., None, None, None]
+            vm_t = velocity_models_t[None, :, :2]
+        velocity_blend = w_extrap * velocity_t
+        velocity_blend += w_nwp * vm_t
+        velocity_blend /= tot
+        if blend_nwp_members:
+            velocity_blend = velocity_blend.mean(dim=1, keepdim=True)
+        del velocity_t, velocity_models_t, vm_t
 
     with annotate("pst.init.noise"):
         # the noise filter, built on the device from the aligned inputs
@@ -819,7 +838,9 @@ def scan_inputs(
 
     # the member-model pairing
     with annotate("pst.init.copy"):
-        precip_models_t = torch.as_tensor(precip_models[:, 1: int_steps + 1], device=device)
+        # the loop's NWP fields, held apart from the stack, which is freed
+        precip_models_t = nwp_t[:, 1: int_steps + 1].clone()
+    del nwp_t
     if blend_nwp_members:
         member_model = torch.zeros(n_ens_members, dtype=torch.int64, device=device)
         # all models as one pseudo-model: their normalized cascades,
@@ -827,8 +848,7 @@ def scan_inputs(
         nwp_levels = nwp_levels.mean(dim=0, keepdim=True)
         nwp_means_all = nwp_means_all.mean(dim=0, keepdim=True)
         nwp_sigmas_all = nwp_sigmas_all.mean(dim=0, keepdim=True)
-        weights_t = weights_t.mean(axis=1, keepdims=True)
-        velocity_blend = velocity_blend.mean(axis=1, keepdims=True)
+        weights = torch.as_tensor(weights_t.mean(axis=1, keepdims=True), device=device)
         precip_models_t = precip_models_t.mean(dim=0, keepdim=True)
     else:
         member_model = torch.arange(n_ens_members, device=device) % n_models
@@ -850,7 +870,7 @@ def scan_inputs(
             mask_prec_init = torch.ones((m, n), dtype=torch.float32, device=device)
 
         # the smooth radar-domain mask
-        if smooth_radar_mask_range and np.any(domain_mask):
+        if smooth_radar_mask_range and holes:
             smooth_mask = compute_smooth_dilated_mask(
                 ~domain_mask_t, max_padding_size_in_px=int(smooth_radar_mask_range))
         else:
@@ -876,15 +896,15 @@ def scan_inputs(
             vsf = 1.0
             eps_par = eps_perp = None
 
-    with annotate("pst.init.copy"):
-        velocity_blend = torch.as_tensor(velocity_blend, dtype=torch.float32, device=device)
     with annotate("pst.init.velocity"):
+        vmax = float(velocity_blend.abs().max()) if velocity_blend.numel() else 0.0
+        vmax_bound = _speed_bound(vmax, int_steps, timestep, vel_pert, p_par, p_perp, vsf)
         # the card's path takes the static bound; the CPU the exact gather
         if device.type == "cpu":
             max_disp = None
         else:
-            max_disp = _scan_bound(velocity_blend, int_steps, timestep, vel_pert, p_par,
-                                   p_perp, vsf, (m, n))
+            max_disp = _scan_bound(vmax, int_steps, timestep, vel_pert, p_par, p_perp, vsf,
+                                   (m, n))
         if "max_disp" in extrap_kwargs:
             max_disp = extrap_kwargs["max_disp"]
 
@@ -903,7 +923,7 @@ def scan_inputs(
 
     with annotate("pst.init.copy"):
         params = StepsBlendingParams(
-            phi=phi.to(torch.float32), weights=torch.as_tensor(weights_t, device=device),
+            phi=phi.to(torch.float32), weights=weights,
             nwp_cascades=nwp_levels[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
             nwp_means=nwp_means_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
             nwp_sigmas=nwp_sigmas_all[:, 1: int_steps + 1].transpose(0, 1).contiguous(),
@@ -911,7 +931,7 @@ def scan_inputs(
             noise_std_coeffs=noise_std_coeffs, velocity_blend=velocity_blend.contiguous(),
             nwp_fields=precip_models_t.transpose(0, 1).contiguous(), member_model=member_model,
             weights_2d=weights_2d, precip_last=precip_t[-1],
-            precip_min=torch.tensor(precip_min, dtype=torch.float32, device=device),
+            precip_min=precip_min_t,
             domain_mask=domain_mask_t, smooth_mask=smooth_mask.to(torch.float32),
             ext_cascades=ext_cascades, ext_means=ext_means, ext_sigmas=ext_sigmas,
         )
@@ -926,9 +946,6 @@ def scan_inputs(
         vel_pert=vel_pert, p_par=p_par, p_perp=p_perp, vsf=vsf,
         timestep_min=float(timestep) if timestep else 1.0, use_noise=noise_method is not None,
     )
-    with annotate("pst.init.velocity"):
-        vmax_bound = _speed_bound(velocity_blend, int_steps, timestep, vel_pert, p_par, p_perp,
-                                  vsf)
     return ScanInputs(params, state, int_steps, statics, vmax_bound)
 
 

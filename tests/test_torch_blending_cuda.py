@@ -16,6 +16,9 @@
 - one PCA EnKF cycle (the correction and the nowcast step on the shift
   path, bound 48) from one state on both devices: the analysis within
   1e-3 of its largest value, the matched and warped members as above;
+- the forecast from CUDA tensors equals the forecast from host numpy
+  inputs, and the init's no-rain gate costs one host sync (counted by the
+  benchmark's span reduction);
 - linear and salient blending over the extrapolation nowcast at 160^2:
   the card's K1 path against the CPU's exact gather within 1e-4 x span
   (salient: at 99.9% of the pixels, the dense ranks of values within
@@ -36,7 +39,9 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch_blending_checks as checks  # noqa: E402
+from benchmark.harness import spans, trace  # noqa: E402
 from helpers import make_synthetic_sequence  # noqa: E402
 
 from pysteps_tpu_torch import blending  # noqa: E402
@@ -94,6 +99,40 @@ def test_stochastic_blending_spreads_on_the_card(dev, skill_dir):
         **_det_kw(skill_dir, noise_method="nonparametric", resample_distribution=True))
     assert out.is_cuda and bool(torch.isfinite(out).all())
     assert bool((out.std(dim=0).mean(dim=(1, 2)) > 0).all())
+
+
+def _card_inputs(dev):
+    db, nwp, vel = _inputs()
+    return [torch.as_tensor(a, device=dev) for a in (db, nwp, vel, vel[None])]
+
+
+def test_forecast_from_card_tensors_equals_host_inputs(dev, skill_dir):
+    """The init takes the caller's CUDA tensors as they are and host
+    arrays across once: the same forecast, bit for bit."""
+    db, nwp, vel = _inputs()
+    kw = _det_kw(skill_dir, noise_method="nonparametric", resample_distribution=True,
+                 vel_pert_method="bps")
+    f = blending.get_method("steps")
+    host = f(db, nwp, vel, vel[None], T, 5.0, **kw)
+    card = f(*_card_inputs(dev), T, 5.0, **kw)
+    assert host.is_cuda and torch.equal(host, card)
+
+
+def test_norain_gate_reads_the_card_once(dev, skill_dir):
+    """From CUDA tensors nothing crosses in ``pst.init.norain``: its one
+    host sync is the read of both gates' counts and the radar's minimum."""
+    args, f = _card_inputs(dev), blending.get_method("steps")
+    f(*args, T, 5.0, **_det_kw(skill_dir))
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(trace.WINDOW_SPAN):
+            with torch.profiler.record_function(trace.FORECAST_SPAN):
+                f(*args, T, 5.0, **_det_kw(skill_dir))
+            torch.cuda.synchronize()
+    red = spans.reduce(prof.profiler.kineto_results.events())
+    assert red["span_n"]["pst.init.norain"] == 1
+    assert red["syncs"].get("pst.init/pst.init.norain") == 1, red["syncs"]
 
 
 def test_pca_enkf_cycle_on_the_card_against_cpu(dev):

@@ -12,6 +12,10 @@
   resampling of the target), value by value with identical NaN sets,
   over the branches of ``tests/test_blending.py``; with SPN weights on
   JAX's weights handed over, the weights held on their own (``spn_run``).
+- ``scan_inputs``' fields (the NWP stack and fields, the blended velocity,
+  the NaN fill, the radar domain and minimum, the speed bound) bit for bit
+  against the same steps in numpy, over the model counts, stack shapes,
+  velocities, NaN and no-rain gates it branches on.
 
 Without a CDF match the outputs are held within 1e-5 x span at every
 pixel.  The loop ends in the exact CDF match (two stable sorts), which
@@ -409,3 +413,108 @@ def test_measure_time_and_nowcaster_class(data, skill_dir):
     np.testing.assert_array_equal(caster.compute_forecast().numpy(), out.numpy())
     assert [f.name for f in tsteps.StepsBlendingConfig.__dataclass_fields__.values()] == [
         f.name for f in jsteps.StepsBlendingConfig.__dataclass_fields__.values()]
+
+
+# scan_inputs prepares its fields on the device the forecast runs on, and
+# must give what the same steps give in float32 numpy on the host, bit for
+# bit (`_host_prepared`).
+PREP = dict(n_ens_members=2, n_cascade_levels=6, precip_thr=-10.0, kmperpixel=1.0, seed=3,
+            noise_method=None)
+PREP_CASES = {
+    "one_model": {},
+    "two_models": dict(models=2),
+    "static_nwp": dict(static_nwp=True),
+    "time_varying_velocity": dict(vel_t=True),
+    "nan_radar_and_nwp": dict(domain_nan=True, nwp_nan=True),
+    "blend_nwp_members": dict(models=2, blend_nwp_members=True),
+    "dry_nwp": dict(dry_nwp=True),
+    "rain_only_in_older_frames": dict(older_rain=True, dry_nwp=True),
+}
+
+
+def _prep_inputs(data, case):
+    """(precip, precip_models, velocity, velocity_models, keywords) of
+    ``PREP_CASES[case]``: ``_branch_inputs``' and three more."""
+    db, velocity, _ = data
+    kw = dict(PREP_CASES[case])
+    more = {k: kw.pop(k, False) for k in ("nwp_nan", "dry_nwp", "older_rain")}
+    vel_t = kw.get("vel_t", False)
+    precip, nwp_in, vel_m, kw = _branch_inputs(data, kw)
+    if vel_t:
+        # T leads of model velocity: the last lead takes the last given
+        vel_m = vel_m[:, :T]
+    if more["nwp_nan"]:
+        nwp_in = nwp_in.copy()
+        nwp_in[..., -4:, :7] = np.nan
+    if more["dry_nwp"]:
+        nwp_in = np.full_like(nwp_in, -15.0)
+    if more["older_rain"]:
+        # two frames before the AR window, the only radar rain
+        precip = np.concatenate([db[:2], np.full_like(db[:3], -15.0)])
+    return precip, nwp_in, velocity, vel_m, kw
+
+
+def _host_prepared(precip, nwp_in, velocity, vel_m, weights_t, weights_2d, blend):
+    """The loop's fields from the inputs and the per-lead weights (T,
+    n_models, 3, k), in float32 numpy; the NWP cascades and the model
+    means of the NWP fields in torch on the CPU."""
+    precip = np.asarray(precip).astype(np.float32)[-3:]
+    pm = np.asarray(nwp_in).astype(np.float32)
+    if pm.ndim == 3:
+        pm = np.repeat(pm[:, None], T + 1, axis=1)
+    vm = np.asarray(vel_m).astype(np.float32)
+    domain_mask = ~np.isfinite(precip[-1])
+    precip_min = float(np.nanmin(precip))
+    precip = np.where(np.isfinite(precip), precip, precip_min)
+    pm = np.where(np.isfinite(pm), pm, precip_min)
+    w_e, w_n = weights_t[:, :, 0, 1], weights_t[:, :, 1, 1]
+    tot = np.maximum(w_e + w_n, 1e-12)
+    if vm.ndim == 5:
+        vm_t = np.swapaxes(vm[:, np.clip(np.arange(1, T + 1), 0, vm.shape[1] - 1)], 0, 1)
+    else:
+        vm_t = vm[None, :, :2]
+    vb = (w_e[..., None, None, None] * velocity[None, None]
+          + w_n[..., None, None, None] * vm_t) / tot[..., None, None, None]
+    levels, _, _ = tsteps.decompose_core(torch.as_tensor(pm[:, : T + 1]), weights_2d,
+                                        normalize=True)
+    fields = torch.as_tensor(pm[:, 1: T + 1])
+    if blend:
+        vb = vb.mean(axis=1, keepdims=True)
+        levels = levels.mean(dim=0, keepdim=True)
+        fields = fields.mean(dim=0, keepdim=True)
+    return dict(
+        velocity_blend=vb, nwp_fields=fields.transpose(0, 1).numpy(),
+        nwp_cascades=levels[:, 1: T + 1].transpose(0, 1).numpy(), precip_last=precip[-1],
+        domain_mask=domain_mask, precip_min=np.float32(precip_min),
+        vmax_bound=float(np.abs(vb).max()),
+    )
+
+
+@pytest.mark.parametrize("case", list(PREP_CASES))
+def test_scan_inputs_prepares_the_host_paths_fields(data, skill_dir, case, monkeypatch):
+    precip, nwp_in, velocity, vel_m, kw = _prep_inputs(data, case)
+    weights = []
+    bps = tsteps.calculate_weights_bps
+    monkeypatch.setattr(tsteps, "calculate_weights_bps",
+                        lambda corr: weights.append(bps(corr)) or weights[-1])
+    inputs = tsteps.scan_inputs(precip, nwp_in, velocity, vel_m, T, 5, device="cpu",
+                                outdir_path_skill=skill_dir, **dict(PREP, **kw))
+    n_models = np.asarray(nwp_in).shape[0]
+    weights_t = np.asarray(weights, np.float32).reshape(T, n_models, 3, -1)
+    ref = _host_prepared(precip, nwp_in, velocity, vel_m, weights_t,
+                         inputs.params.weights_2d, kw.get("blend_nwp_members", False))
+    got = {k: getattr(inputs.params, k) for k in ref if k != "vmax_bound"}
+    for name, tensor in got.items():
+        assert tensor.dtype == (torch.bool if name == "domain_mask" else torch.float32), name
+        np.testing.assert_array_equal(tensor.numpy(), ref[name], err_msg=name)
+    assert inputs.vmax_bound == ref["vmax_bound"]
+
+
+def test_scan_inputs_of_dry_radar_and_nwp_is_none(data, skill_dir):
+    db, velocity, nwp = data
+    dry = np.full_like(db[:3], -15.0)
+    assert tsteps.scan_inputs(dry, np.full_like(nwp, -15.0)[None], velocity, velocity[None], T,
+                              5, device="cpu", outdir_path_skill=skill_dir, **PREP) is None
+    with pytest.raises(ValueError):
+        tsteps.scan_inputs(db[:3], nwp[None], velocity, velocity[None], T, 5, device="cpu",
+                           outdir_path_skill=skill_dir, **dict(PREP, precip_thr=None))

@@ -114,6 +114,51 @@ def test_check_norain(win_fun, norain_thr):
         assert out == bool(ref)
 
 
+def _edge_field(thr, dtype, seed):
+    """(3, 24, 20) values on the threshold's edge: the largest float32 at
+    most ``thr``, the float32 nearest it and the next one up, some far
+    below, some NaN (``thr`` None: around a minimum of -15)."""
+    rng = np.random.RandomState(seed)
+    t32 = np.float32(-15.0 if thr is None else thr)
+    edge = np.array([np.nextafter(t32, np.float32(-np.inf)), t32,
+                     np.nextafter(t32, np.float32(np.inf)), np.float32(-20.0)])
+    if thr is None:
+        edge = edge[1:3]
+    field = rng.choice(edge, size=(3, 24, 20)).astype(dtype)
+    field[rng.rand(*field.shape) < 0.05] = np.nan
+    return field
+
+
+def _numpy_rain_count(field, thr, win_fun):
+    """The numpy path's count of rain pixels."""
+    taper = (ttaper.compute_window_function(*field.shape[-2:], win_fun) if win_fun
+             else np.ones(field.shape[-2:]))
+    masked = np.array(field, dtype=float)
+    masked[..., taper == 0.0] = np.nanmin(field)
+    return int(np.sum(masked > (np.nanmin(masked) if thr is None else thr)))
+
+
+@pytest.mark.parametrize("win_fun", [None, "tukey"])
+@pytest.mark.parametrize("thr", [None, -10.0, 0.1])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_check_norain_tensor_path_on_the_threshold_edge(win_fun, thr, dtype):
+    """A tensor is gated on its own device (``rain_count``) with the numpy
+    path's answer: values at the threshold, one float32 step either side
+    of it, a threshold float32 cannot hold (0.1), NaN pixels, and a rain
+    fraction exactly at ``norain_thr``."""
+    for seed in range(3):
+        field = _edge_field(thr, dtype, seed)
+        count = _numpy_rain_count(field, thr, win_fun)
+        assert 0 < count < field.size
+        assert int(tnorain.rain_count(torch.as_tensor(field), thr, win_fun)) == count
+        frac = count / field.size
+        for norain_thr in (0.0, frac, np.nextafter(frac, 0.0), np.nextafter(frac, 1.0)):
+            ref = tnorain.check_norain(field, thr, norain_thr, win_fun, printmsg=False)
+            out = tnorain.check_norain(torch.as_tensor(field), thr, norain_thr, win_fun,
+                                       printmsg=False)
+            assert out == ref == (frac <= norain_thr)
+
+
 @pytest.mark.parametrize("timesteps", [3, [1, 2.5]])
 def test_norain_forecast_exits_early(timesteps):
     """An all-dry input skips the scan: every member and lead holds the

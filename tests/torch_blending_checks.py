@@ -89,8 +89,8 @@ def steps_card_vs_cpu(label, db, nwp, velocity, T, kw):
     ``nwp`` (1, >= T + 1, m, n) and ``velocity`` (2, m, n) numpy; ``kw`` a
     deterministic configuration.  Returns the comparison."""
     f = blending.get_method("steps")
-    max_disp = bsteps._scan_bound(torch.as_tensor(velocity)[None, None], T, 5.0, False, None,
-                                  None, 1.0, tuple(db.shape[-2:]))
+    max_disp = bsteps._scan_bound(float(np.abs(velocity).max()), T, 5.0, False, None, None,
+                                  1.0, tuple(db.shape[-2:]))
     if max_disp is None:
         raise AssertionError(f"{label}: no displacement bound, so no shift path")
     _kernels.reset_launches()
